@@ -3,13 +3,19 @@
 
     python3 chip_smoke.py    # from the repo root, on a machine with a card
 
-The main path is the flagship evaluation's estimate/policy/fuse service
-(``controller=rl``, ``pose_estimator=adapose_cabinet_fast`` with
+The script drives three paths of the port. The main one is the flagship
+evaluation's estimate/policy/fuse service (``controller=rl``,
+``pose_estimator=adapose_cabinet_fast`` with
 ``checkpoints/estimator_fast_cabinet_aug_r5.ckpt``, 8 envs): per step the PPO
 actor picks the next camera pose, the estimator turns each env's last two
 640x480 views into a world bbox, and ``consensus_fuse`` merges the per-step
-bboxes. The views are synthetic and made from a seed; the simulator is not
-ported yet. Phases:
+bboxes. The second is the row-gather probe (``scripts/try_gather.py``, the
+one entry point of kernel K5) at its default shape; the third the
+paper-size estimator (``adapose_cabinet``: resnet34 at backbone stride 8,
+224 px, a 112x112x24 cost volume, 1024 points) on weights made from a seed,
+since its released weights are not in the repo. The views are synthetic
+and made from a seed; the simulator is not ported yet. Each path runs with
+every launch counter set to 0 just before it and read just after. Phases:
 
   1. card: name, power limit, versions; TF32 off for the f32 phases
   2. build every kernel of the path with nvcc (sm_90a), all at once
@@ -20,8 +26,20 @@ ported yet. Phases:
   6. the same estimate on the card and on the CPU (plain path)
   7. timings: each kernel's device time (torch.profiler) beside its bound,
      its plain version's and the library call's; back-to-back call times
-     (CUDA events); estimate wall time, device busy time and the kernels
-     that take it, at B=8 and B=64
+     (CUDA events, ``perfutil.bench``); estimate wall time, device busy
+     time and the kernels that take it, at B=8 and B=64
+  8. the gather probe: K5 at (16, 112, 32, 24) bf16 through the probe's
+     ``run``, bit-exact against ``index_select``
+  9. the paper-size estimate at B=8 and B=16 (K1 twice per estimate, K1
+     against its plain version at 224 px), card against CPU at B=2
+ 10. timings: K5's device time beside its bound, its plain version's and
+     ``index_select``'s; the gather-regime sweep; the paper estimate's wall
+     time, busy time, idle share and top kernels at B=8 and B=16, and where
+     the warp and the point gathers rank among them
+
+Phase 3 also holds K5 against its plain version, bit-exact, at
+(16, 112, 32, 24) in bf16 and f32 and at (1, 640, 8, 2), where the index
+arithmetic wraps around int32.
 
 Any failure exits non-zero. The line before the last is the kernels' JSON,
 the line before that the card's name and power limit, and the last line is
@@ -34,16 +52,18 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H, W = 480, 640
 STEPS, B_MAIN, B_WIDE = 4, 8, 64
+B_PAPER = (8, 16)              # the evaluation's num_envs; the probe's batch
+B_PAPER_CPU = 2
+PAPER_OVERRIDES = {}           # none: the configuration as its file gives it
+K5_WRAP_SHAPE = (1, 640, 8, 2)  # B, S, C, D: HW = 409,600, the index wraps int32
 CKPT_EST = "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"
 CKPT_POLICY = "checkpoints/ppo_rl_coadapt_model_165.ckpt"
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 K_CAM = ((439.3, 0.0, 320.0), (0.0, 439.3, 240.0), (0.0, 0.0, 1.0))
 
@@ -59,32 +79,6 @@ def check(cond, msg):
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, iters=20, reps=5):
-    """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
-    by CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
 
 
 def device_times(torch, fn, n=20):
@@ -182,6 +176,7 @@ def k1_bound(torch, rmin, cmin, inv, S):
     once, the windows read once; against ~11 f32 operations per output
     value. Returns (ms, "bytes" or "operations")."""
     from rgbmanip_tpu_torch.ops.crop_resize import _hat_taps
+    from rgbmanip_tpu_torch.scripts.perfutil import HBM_BYTES_PER_S
 
     def distinct(lo, inv_b, n):
         i0, i1, w0, w1 = _hat_taps(lo, inv_b, S, n)
@@ -229,6 +224,237 @@ def k1_check(torch, k1, rgb, win, S, tag):
     return err
 
 
+# ------------------------------------------------------------------- K5 ----
+def k5_table(torch, shape, dtype, dev, seed=0):
+    """A (B, S*S, C) table of normal values in ``dtype`` (a torch name)."""
+    B, S, C, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(B, S * S, C, generator=g, device=dev).to(getattr(torch, dtype))
+
+
+def k5_check(torch, k5, shape, dtype, dev):
+    """Kernel vs plain on the card, bit-exact: a gather rounds nothing.
+    Returns the max |error| (0)."""
+    table = k5_table(torch, shape, dtype, dev)
+    out = k5.row_gather(table, shape[3])
+    ref = k5.row_gather_plain(table, shape[3])
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == table.dtype,
+          f"K5 {shape} {dtype}: bad output")
+    rows = int((out != ref).any(-1).sum().item())
+    check(rows == 0, f"K5 {shape} {dtype}: {rows} rows differ from the plain version")
+    return (out.float() - ref.float()).abs().max().item()
+
+
+# ----------------------------------------------------------- the estimate --
+def stage_ranking(torch, est, inputs, kernels):
+    """Device time per estimate of the network's stages, each replayed on
+    the arguments one estimate gave it: the PSPNet features, the 3-D U-Net,
+    the plane-sweep warp (K2, ``homo_warp_batched``), the point samples
+    (K3, ``point_sample``: NOCS features and depth) and the pose gathers
+    (K4, ``flat_gather`` in ``pose_branch``); and the rank each would take
+    among ``kernels``, the estimate's device time by kernel name. Returns
+    {stage: (calls, ms, rank, (its top kernel, ms))}."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    net = est.model
+    stages = {   # label: (owner, attribute, which calls to keep)
+        "PSPNet": (net.img_extractor, "forward", None),
+        "3-D U-Net": (net.cost_regularization, "forward", None),
+        "warp (K2)": (stereo, "homo_warp_batched", None),
+        "point samples (K3)": (stereo, "point_sample", None),
+        # the warp's own taps go through flat_gather too, with 3-D indices
+        "pose gathers (K4)": (stereo, "flat_gather", lambda table, idx: idx.dim() == 2),
+    }
+    orig = {k: getattr(owner, attr) for k, (owner, attr, _) in stages.items()}
+    calls = {k: [] for k in stages}
+
+    def recorder(k, keep):
+        def rec(*args):
+            if keep is None or keep(*args):
+                calls[k].append(args)
+            return orig[k](*args)
+        return rec
+
+    patched = []
+    try:
+        for k, (owner, attr, keep) in stages.items():
+            patched.append((owner, attr, attr in vars(owner)))
+            setattr(owner, attr, recorder(k, keep))
+        est.estimate_full(*inputs)
+    finally:
+        for (owner, attr, had), k in zip(patched, stages):
+            if had:
+                setattr(owner, attr, orig[k])
+            else:
+                delattr(owner, attr)
+    out = {}
+    with torch.inference_mode():
+        for k in stages:
+            check(calls[k], f"the estimate made no call to {k}")
+            per_kernel = device_times(torch, lambda: [orig[k](*a) for a in calls[k]], n=5)
+            total = sum(per_kernel.values())
+            rank = 1 + sum(v > total for v in kernels.values())
+            out[k] = (len(calls[k]), total, rank,
+                      max(per_kernel.items(), key=lambda kv: kv[1]))
+    return out
+
+
+# ----------------------------------------------- the probe and paper paths --
+def probe_path(torch, dev):
+    """Phase 8: the gather probe's ``run`` at its default shape, counters
+    set to 0 just before and read just after. Returns the launches."""
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+    from rgbmanip_tpu_torch.scripts import try_gather
+
+    k1.crop_resize_normalize.launches = 0
+    k5.row_gather.launches = 0
+    probe = try_gather.run(device=dev)             # at its default shape
+    launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                "row_gather": k5.row_gather.launches}
+    check(probe["exact"] and launches["row_gather"] > 0,
+          f"the probe did not go through K5: {launches}")
+    say("probe", f"{try_gather.describe(probe)} | launches {launches} (1 checked, "
+        f"the rest timed)")
+    return launches
+
+
+def paper_path(np, torch, dev):
+    """Phase 9: the paper-size estimator on seeded weights at each batch of
+    ``B_PAPER`` (K1 held against its plain version at the estimator's size,
+    then the estimate with the counters set to 0 just before it and read
+    just after), and card against CPU at ``B_PAPER_CPU``. Returns the
+    estimator and its inputs by batch."""
+    from rgbmanip_tpu_torch.config.loader import load_group
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import AdaPoseEstimator
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    cfg = load_group("pose_estimator", "adapose_cabinet", PAPER_OVERRIDES)
+    S = int(cfg["img_size"])
+    t0 = time.perf_counter()
+    paper = AdaPoseEstimator(cfg, device=dev, seed=0)
+    m = paper.model
+    check((m.backend, m.backbone_stride, m.volume_scale, m.warp_mode, paper.n_depth,
+           paper.n_pts) == ("resnet34", 8, 2, "nearest", 24, 1024),
+          f"adapose_cabinet is not the paper configuration: {paper._arch_meta()}")
+    Sv = S // m.volume_scale
+    say("paper", f"adapose_cabinet on {dev} in {time.perf_counter() - t0:.1f} s: "
+        f"resnet34 at backbone stride 8, {S} px, a {Sv}x{Sv}x{paper.n_depth} volume, "
+        f"{paper.n_pts} points; weights made from seed 0 (the released .pth files "
+        f"are not in the repo)")
+    inputs_by_b = {}
+    for B in B_PAPER:
+        inputs = tuple(torch.from_numpy(a).to(dev)
+                       for a in pair(np, np.random.default_rng(30 + B), B))
+        inputs_by_b[B] = inputs
+        err = k1_check(torch, k1, inputs[1], k1_windows(torch, inputs[2], S), S,
+                       f"paper B={B}")
+        k1.crop_resize_normalize.launches = 0
+        k5.row_gather.launches = 0
+        full = paper.estimate_full(*inputs)
+        launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                    "row_gather": k5.row_gather.launches}
+        check(launches["crop_resize_normalize"] == 2,
+              f"K1 launched {launches['crop_resize_normalize']} times in one "
+              f"paper-size estimate; the path launches it twice")
+        check(full["bbox"].shape == (B, 8, 3) and np.isfinite(full["bbox"]).all(),
+              f"paper estimate B={B}: bad bbox")
+        say("paper", f"B={B}: {int(full['valid'].sum())}/{B} estimates valid; launches "
+            f"{launches} (K1 twice per estimate); K1 at {S} px vs plain max |err| "
+            f"f32 {err:.3g} (limit 1e-5), bf16 within one ulp")
+
+    cpu_paper = AdaPoseEstimator(cfg, device="cpu", seed=0)
+    B = B_PAPER_CPU
+    views_cpu = pair(np, np.random.default_rng(40), B)
+    g = torch.Generator().manual_seed(6)
+    u1 = torch.rand(B, S * S, generator=g)
+    u2 = torch.rand(B, S * S, generator=g)
+    outs = {}
+    for name, e in (("card", paper), ("cpu", cpu_paper)):
+        d = e.device
+        bbox, valid, _ = e._estimate(*(torch.from_numpy(a).to(d) for a in views_cpu),
+                                     u1.to(d), u2.to(d))
+        outs[name] = (bbox.cpu().numpy(), valid.cpu().numpy())
+    bdiff = float(np.abs(outs["card"][0] - outs["cpu"][0]).max())
+    vsame = bool((outs["card"][1] == outs["cpu"][1]).all())
+    say("paper-card-vs-cpu", f"B={B} same views, draws and seeded weights: max |bbox "
+        f"diff| {bdiff:.3g} m (limit 1e-3), valid flags equal: {vsame} "
+        f"({int(outs['cpu'][1].sum())}/{B} valid)")
+    check(bdiff <= 1e-3 and vsame, "card and CPU paper-size estimates disagree")
+    check(outs["cpu"][1].any(), "no valid paper-size estimate: the comparison would "
+          "be of sentinel boxes")
+    return paper, inputs_by_b
+
+
+def k5_timings(torch, dev, card):
+    """Phase 10: K5's device time per call beside its bound, its plain
+    version's and ``index_select``'s, at the probe's shape in bf16.
+    Returns ({"kernel", "plain", "library": ms}, bound ms, bound_by)."""
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+    from rgbmanip_tpu_torch.scripts import try_gather
+    from rgbmanip_tpu_torch.scripts.perfutil import HBM_BYTES_PER_S
+
+    shape = try_gather.DEFAULT_SHAPE
+    B, S, C, D = shape
+    table = k5_table(torch, shape, "bfloat16", dev)
+    flat_index = try_gather.flat_gather_index(B, S * S, D, dev)
+    calls = {
+        "kernel": lambda: k5.row_gather(table, D),
+        "plain": lambda: k5.row_gather_plain(table, D),
+        "library": lambda: try_gather.index_select_reference(table, D, flat_index),
+    }
+    dev_ms = {k: device_times(torch, fn) for k, fn in calls.items()}
+    kern = {n: v for n, v in dev_ms["kernel"].items() if "row_gather_kernel" in n}
+    check(len(kern) == 1, f"the profiler did not see K5's kernel: {sorted(dev_ms['kernel'])}")
+    ms = {"kernel": sum(kern.values()), "plain": sum(dev_ms["plain"].values()),
+          "library": sum(dev_ms["library"].values())}
+    bound_bytes, probe_bytes = try_gather.traffic(*shape, 2)
+    bound, bound_by = bound_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    say("time", f"{card} | K5 (B, S, C, D) = {shape} bf16, device time per call: "
+        f"kernel {ms['kernel']:.4f} ms ({bound / ms['kernel'] * 100:.1f}% of the "
+        f"{bound:.4f} ms {bound_by} bound: table read once + output written once, "
+        f"{bound_bytes / 1e6:.1f} MB; {probe_bytes / ms['kernel'] / 1e6:.0f} GB/s eff "
+        f"in the JAX probe's counting, {probe_bytes / 1e6:.1f} MB), plain "
+        f"{ms['plain']:.4f} ms, index_select {ms['library']:.4f} ms (its int64 index "
+        f"{flat_index.numel() * 8 / 1e6:.1f} MB)")
+    return ms, bound, bound_by
+
+
+def regime_timings(card):
+    """Phase 10: the gather-regime sweep (rows or bytes?) on the card."""
+    from rgbmanip_tpu_torch.scripts import probe_gather_regime as regime
+
+    say("time", f"{card} | gather regime: index_select of a bf16 table of "
+        f"{regime.TABLE_ROWS} rows, int32 indices, CUDA events, best of reps")
+    for r in regime.run("cuda"):
+        say("time", f"    {regime.describe(r)}")
+
+
+def paper_timings(torch, paper, inputs_by_b, card):
+    """Phase 10: the paper estimate's wall time, device busy time, idle
+    share and top kernels at each batch, and where its stages (the warp and
+    the point gathers among them) rank among those kernels."""
+    for B, inputs in inputs_by_b.items():
+        def estimate():
+            paper.estimate_full(*inputs)
+        wall = host_ms(torch, estimate, reps=5)
+        kernels = device_times(torch, estimate, n=3)
+        busy = sum(kernels.values())
+        say("time", f"{card} | paper estimate B={B} (inputs on the card, f32): "
+            f"{wall:.2f} ms wall, {B / wall * 1e3:.0f} view pairs/s; device busy "
+            f"{busy:.2f} ms per estimate, idle {(1 - busy / wall) * 100:.0f}% of the "
+            f"wall time; {len(kernels)} kernel names")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])
+        for rank, (name, v) in enumerate(top[:12], start=1):
+            say("time", f"    #{rank} {v:.4f} ms ({v / busy * 100:.1f}%) {name[:90]}")
+        for stage, (n, ms, rank, (kname, kms)) in stage_ranking(torch, paper, inputs,
+                                                                  kernels).items():
+            say("time", f"    {stage}: {n} calls, {ms:.4f} ms per estimate "
+                f"({ms / busy * 100:.1f}% of busy), would rank #{rank} of "
+                f"{len(kernels)}; its top kernel {kms:.4f} ms {kname[:60]}")
+
+
 # ------------------------------------------------------------------ main ---
 def run():
     import numpy as np
@@ -245,6 +471,9 @@ def run():
         from rgbmanip_tpu_torch.models.pose_estimator.adapose import AdaPoseEstimator
         from rgbmanip_tpu_torch.ops import _build
         from rgbmanip_tpu_torch.ops import crop_resize as k1
+        from rgbmanip_tpu_torch.ops import row_gather as k5
+        from rgbmanip_tpu_torch.scripts import try_gather
+        from rgbmanip_tpu_torch.scripts.perfutil import bench, card_line
     except ImportError as e:
         raise SmokeError(f"the port is not next to this script ({e})")
 
@@ -258,7 +487,7 @@ def run():
         f"for convolutions and matmuls (f32 throughout)")
 
     # 2. build -------------------------------------------------------------
-    kernels = ["crop_resize_normalize"]
+    kernels = ["crop_resize_normalize", "row_gather"]
     t0 = time.perf_counter()
     _build.build_all(kernels)
     say("build", f"{len(kernels)} kernel(s) built with nvcc for sm_90a in "
@@ -282,6 +511,13 @@ def run():
             f"(limit 1e-5), bf16 within one ulp; windows "
             f"{sorted(set(int(round(float(v) * S)) for v in win[2]))} px incl. "
             f"frame corners")
+    k5_errs = []
+    probe_shape = try_gather.DEFAULT_SHAPE
+    for shape, dtype in ((probe_shape, "bfloat16"), (K5_WRAP_SHAPE, "bfloat16"),
+                         (probe_shape, "float32")):
+        k5_errs.append(k5_check(torch, k5, shape, dtype, dev))
+        say("k5", f"(B, S, C, D) = {shape} {dtype}: kernel equals plain bit for bit "
+            f"(max |err| {k5_errs[-1]:.3g})")
 
     # 4. load --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -302,6 +538,7 @@ def run():
     step_inputs = []
     n_valid = 0
     k1.crop_resize_normalize.launches = 0
+    k5.row_gather.launches = 0
     t0 = time.perf_counter()
     for t in range(1, STEPS + 1):
         obs[:, -M:] = 0.0
@@ -319,7 +556,8 @@ def run():
         obs[:, :6] = actions[:, :6]   # the next observation carries the action
     fused = consensus_fuse(pred_bbox, STEPS, stereo_ok=pair_dist >= 0.04)
     loop_s = time.perf_counter() - t0
-    launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches}
+    launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                "row_gather": k5.row_gather.launches}
     check(launches["crop_resize_normalize"] == 2 * STEPS,
           f"K1 launched {launches['crop_resize_normalize']} times in {STEPS} "
           f"estimates; the path launches it twice per estimate")
@@ -361,24 +599,23 @@ def run():
             win = k1_windows(torch, torch.from_numpy(mw).to(dev), S)
         err = k1_check(torch, k1, rgb, win, S, f"timed B={B}")
         grid = grid_for(torch, *win, S)
-        nchw = rgb.permute(0, 3, 1, 2)
         calls = {
-            "kernel": lambda: k1.crop_resize_normalize(rgb, *win, S),
-            "plain": lambda: k1.crop_resize_normalize_plain(rgb, *win, S),
-            "library": lambda: F.grid_sample(nchw, grid, mode="bilinear",
-                                             padding_mode="border", align_corners=False),
+            "kernel": lambda x: k1.crop_resize_normalize(x, *win, S),
+            "plain": lambda x: k1.crop_resize_normalize_plain(x, *win, S),
+            "library": lambda x: F.grid_sample(x.permute(0, 3, 1, 2), grid, mode="bilinear",
+                                               padding_mode="border", align_corners=False),
         }
-        dev_ms = {k: device_times(torch, fn) for k, fn in calls.items()}
+        dev_ms = {k: device_times(torch, lambda fn=fn: fn(rgb)) for k, fn in calls.items()}
         kern = {n: v for n, v in dev_ms["kernel"].items() if "crop_resize_normalize_kernel" in n}
         check(len(kern) == 1, f"the profiler did not see K1's kernel: {sorted(dev_ms['kernel'])}")
         ms = {"kernel": sum(kern.values()), "plain": sum(dev_ms["plain"].values()),
               "library": sum(dev_ms["library"].values())}
-        call_ms = {k: cuda_ms(torch, fn) for k, fn in calls.items()}
+        call_ms = {k: bench(fn, rgb, iters=20, reps=5) for k, fn in calls.items()}
         bound, bound_by = k1_bound(torch, *win, S)
-        lib = calls["library"]().permute(0, 2, 3, 1)
+        lib = calls["library"](rgb).permute(0, 2, 3, 1)
         mean = torch.tensor(k1.IMAGENET_MEAN, device=dev)
         std = torch.tensor(k1.IMAGENET_STD, device=dev)
-        lib_err = ((lib - mean) / std - calls["kernel"]()).abs().max().item()
+        lib_err = ((lib - mean) / std - calls["kernel"](rgb)).abs().max().item()
         say("time", f"{card} | K1 B={B} {H}x{W}->{S} f32, device time per call: "
             f"kernel {ms['kernel']:.4f} ms ({bound / ms['kernel'] * 100:.1f}% of the "
             f"{bound:.4f} ms {bound_by} bound), plain {ms['plain']:.4f} ms, "
@@ -409,6 +646,17 @@ def run():
     say("time", f"{card} | act_inference B={B_MAIN}: {ms_np:.3f} ms numpy in/out, "
         f"{ms:.3f} ms on-card tensors")
 
+    # 8. the gather probe ----------------------------------------------------
+    probe_launches = probe_path(torch, dev)
+
+    # 9. the paper-size estimate ---------------------------------------------
+    paper, paper_inputs = paper_path(np, torch, dev)
+
+    # 10. timings of the probe path and the paper-size estimate ---------------
+    k5_ms, k5_bound_ms, k5_bound_by = k5_timings(torch, dev, card)
+    regime_timings(card)
+    paper_timings(torch, paper, paper_inputs, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
@@ -422,6 +670,18 @@ def run():
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": ms["library"],
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "rgbmanip_tpu_torch/csrc/row_gather.cu",
+        "replaces": "scripts/try_pallas_gather.py:43",
+        "launches": probe_launches["row_gather"],
+        "max_abs_err": max(k5_errs),
+        "ms": k5_ms["kernel"],
+        "plain_ms": k5_ms["plain"],
+        "bound_ms": k5_bound_ms,
+        "bound_by": k5_bound_by,
+        "library_ms": k5_ms["library"],
     }]}
 
 

@@ -20,7 +20,7 @@ from ...utils.checkpoint import load_checkpoint
 from ...utils.logger import get_logger
 from .base_estimator import BasePoseEstimator
 from .converter import load_jax_params
-from .nets.stereo import StereoPoseNetWithDepth
+from .nets.stereo import StereoPoseNetWithDepth, flax_init_
 
 DEFAULT_BBOX = np.array([
     [0, 0, 0], [0, 0, 1], [0, 1, 0], [0, 1, 1],
@@ -47,14 +47,21 @@ class AdaPoseEstimator(BasePoseEstimator):
         if self.n_depth % 8 != 0:
             raise ValueError(f"n_depth must be a multiple of 8 for the "
                              f"cost-regularization U-Net, got {self.n_depth}")
-        self.model = StereoPoseNetWithDepth(
-            backend=cfg.get("backend", "resnet34"),
-            backbone_stride=int(cfg.get("backbone_stride", 8)),
-            volume_scale=int(cfg.get("volume_scale", 1)),
-            warp_mode=cfg.get("warp_mode", "bilinear"),
-            stereo_fusion=cfg.get("name", "adapose_v5") != "adapose_baseline",
-            volume_channels=int(cfg.get("volume_channels", 0)),
-            realworld_pts=self.real_world).eval()
+        # the initial weights come from ``seed``, drawn as the JAX package's
+        # flax init draws them, so that two estimators of one configuration
+        # and seed hold the same network; PyTorch's default init, drawn from
+        # the global CPU generator and then overwritten, leaves that
+        # generator as it was
+        with torch.random.fork_rng(devices=[]):
+            net = StereoPoseNetWithDepth(
+                backend=cfg.get("backend", "resnet34"),
+                backbone_stride=int(cfg.get("backbone_stride", 8)),
+                volume_scale=int(cfg.get("volume_scale", 1)),
+                warp_mode=cfg.get("warp_mode", "bilinear"),
+                stereo_fusion=cfg.get("name", "adapose_v5") != "adapose_baseline",
+                volume_channels=int(cfg.get("volume_channels", 0)),
+                realworld_pts=self.real_world)
+        self.model = flax_init_(net, torch.Generator().manual_seed(seed)).eval()
         if cfg.get("load") and cfg.get("checkpoint_path"):
             self.load(cfg["checkpoint_path"])
         else:
@@ -66,7 +73,10 @@ class AdaPoseEstimator(BasePoseEstimator):
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _arch_meta(self) -> dict:
-        """Knobs that change behaviour without changing parameter shapes."""
+        """Knobs that change behaviour without changing parameter shapes: a
+        checkpoint of one backbone stride (or warp, or volume scale) would
+        load without complaint into a net of another, so ``load`` compares
+        them with the checkpoint's metadata."""
         m = self.model
         return {"backend": m.backend, "backbone_stride": m.backbone_stride,
                 "volume_scale": m.volume_scale, "warp_mode": m.warp_mode,

@@ -3,8 +3,11 @@ into the port's ``StereoPoseNetWithDepth``.
 
 The port's modules are named after the reference torch state_dict keys, so
 the key map below is the JAX package's ``converter.torch_key_map`` (torch key
--> flax path) with resnet18's block counts, and a ``.pth`` of the reference
-loads into the same names later. Layouts, flax -> torch:
+-> flax path), with the block counts and downsample convs of the model's
+backend (resnet34, resnet18 or resnet10s), and a ``.pth`` of the reference
+loads into the same names later. The backbone stride changes no parameter:
+a stride-8 downsample conv is a 1x1 conv of stride 1, and the slim
+resnet10s ``up_1`` a 1x1 conv. Layouts, flax -> torch:
 
   Conv         (kh, kw, I, O)      -> Conv2d (O, I, kh, kw)
   Conv 3-D     (kd, kh, kw, I, O)  -> Conv3d (O, I, kd, kh, kw)
@@ -24,11 +27,11 @@ import numpy as np
 import torch
 
 from ...utils.checkpoint import flatten
-from .nets.pspnet import BLOCKS
+from .nets.pspnet import ARCH, has_downsample
 
 Path = Tuple[str, ...]
 
-_FLAX_TO_TORCH = {
+FLAX_TO_TORCH = {
     "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
     "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),
     "deconv3d": lambda w: np.transpose(w, (3, 4, 0, 1, 2)),
@@ -37,9 +40,12 @@ _FLAX_TO_TORCH = {
 }
 
 
-def torch_key_map() -> Dict[str, Tuple[str, Path, str]]:
+def torch_key_map(backend: str = "resnet18") -> Dict[str, Tuple[str, Path, str]]:
     """torch key -> (flax collection, flax path, layout kind) for the port's
-    ``StereoPoseNetWithDepth`` (resnet18, regressed pose)."""
+    ``StereoPoseNetWithDepth`` with ``backend`` (regressed pose)."""
+    if backend not in ARCH:
+        raise ValueError(f"backend must be one of {sorted(ARCH)}, got {backend!r}")
+    blocks_per_stage, planes, _ = ARCH[backend]
     m: Dict[str, Tuple[str, Path, str]] = {}
 
     def p(tk, path, kind):
@@ -50,13 +56,13 @@ def torch_key_map() -> Dict[str, Tuple[str, Path, str]]:
 
     pe = ("img_extractor",)
     conv2d("img_extractor.feats.conv1", *pe, "feats", "conv1")
-    for li, blocks in enumerate(BLOCKS, start=1):
+    for li, blocks in enumerate(blocks_per_stage, start=1):
         for b in range(blocks):
             base = f"img_extractor.feats.layer{li}.{b}"
             fbase = pe + ("feats", f"layer{li}_{b}")
             conv2d(base + ".conv1", *fbase, "conv1")
             conv2d(base + ".conv2", *fbase, "conv2")
-            if b == 0 and li > 1:
+            if b == 0 and has_downsample(li - 1, planes):
                 conv2d(base + ".downsample.0", *fbase, "downsample")
     for s in range(4):
         conv2d(f"img_extractor.psp.stages.{s}.1", *pe, "psp", f"stage{s}")
@@ -101,11 +107,12 @@ def torch_key_map() -> Dict[str, Tuple[str, Path, str]]:
 
 
 def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
-    """Copy a flax (params, batch_stats) tree into ``model`` in place. Raises
+    """Copy a flax (params, batch_stats) tree into ``model``, a
+    ``StereoPoseNetWithDepth`` whose ``backend`` picks the key map, in place. Raises
     on a torch entry with no flax leaf, a flax leaf left over, or a shape
     that does not match."""
     trees = {"params": flatten(params), "batch_stats": flatten(batch_stats)}
-    kmap = torch_key_map()
+    kmap = torch_key_map(model.backend)
     state = model.state_dict()
     targets = [k for k in state if not k.endswith("num_batches_tracked")]
     missing = [k for k in targets if k not in kmap or kmap[k][1] not in trees[kmap[k][0]]]
@@ -120,7 +127,7 @@ def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> 
     new_state = {}
     for k in targets:
         coll, fp, kind = kmap[k]
-        w = _FLAX_TO_TORCH[kind](np.array(trees[coll][fp], dtype=np.float32))
+        w = FLAX_TO_TORCH[kind](np.array(trees[coll][fp], dtype=np.float32))
         if tuple(w.shape) != tuple(state[k].shape):
             raise ValueError(f"{k}: flax {'/'.join(fp)} gives shape {w.shape}, "
                              f"the port expects {tuple(state[k].shape)}")

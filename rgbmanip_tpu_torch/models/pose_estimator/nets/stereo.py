@@ -1,5 +1,7 @@
 """StereoPoseNetWithDepth (counterpart of
-``rgbmanip_tpu/models/pose_estimator/nets/stereo.py``), production knobs.
+``rgbmanip_tpu/models/pose_estimator/nets/stereo.py``): every PSPNet
+backend and backbone stride, ``volume_scale``, nearest or bilinear warp,
+regressed pose.
 
 Per view: PSPNet features, a plane-sweep cost volume built by warping the
 other view's features over D depth hypotheses, a 3-D U-Net (CostRegNet) over
@@ -140,6 +142,32 @@ class CostRegNet(nn.Module):
         return self.prob(x)
 
 
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Redraw ``model``'s weights in place from the distributions of the JAX
+    package's flax init (not its numbers): every conv, transposed-conv and
+    linear weight from lecun_normal, a normal truncated at two standard
+    deviations and scaled to variance 1 / fan-in, where fan-in counts the
+    input channels times the kernel's taps; biases zero. PReLU slopes (0.25)
+    and BatchNorm (identity) already start as flax's do. PyTorch's own
+    default draws a third of that variance, and through the 36 unnormalised
+    conv layers of resnet34 the NOCS head's output then barely varies
+    across points, so the scale solve finds no pair and returns no pose.
+    The draws come from ``generator`` alone."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+                w = mod.weight
+                taps = w[0, 0].numel() if w.dim() > 2 else 1
+                fan_in = taps * (w.shape[0] if isinstance(mod, nn.ConvTranspose3d)
+                                 else w.shape[1])
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    return model
+
+
 def _mlp(widths, final=None):
     """Per-point MLP on (..., C): Linear/ReLU pairs, the last layer followed
     by ``final`` (a module or None). Sequential indices match the reference
@@ -165,9 +193,7 @@ class StereoPoseNetWithDepth(nn.Module):
                  volume_channels: int = 0, realworld_pts: bool = False,
                  fuse_views: bool = False):
         super().__init__()
-        unported = {"backend": (backend, "resnet18"),
-                    "backbone_stride": (backbone_stride, 32),
-                    "regress_pose": (regress_pose, True),
+        unported = {"regress_pose": (regress_pose, True),
                     "stereo_fusion": (stereo_fusion, True),
                     "volume_channels": (volume_channels, 0),
                     "realworld_pts": (realworld_pts, False),
@@ -190,7 +216,7 @@ class StereoPoseNetWithDepth(nn.Module):
                              f"the feature stride {fs} (backbone_stride "
                              f"{backbone_stride})")
 
-        self.img_extractor = PSPNet()
+        self.img_extractor = PSPNet(backend, backbone_stride)
         self.instance_color = _mlp((32, 64), nn.ReLU())
         self.nocs_head = _mlp((64, 128, 64, 3), nn.Tanh())
         self.cost_regularization = CostRegNet(32, base=8)

@@ -178,10 +178,17 @@ def test_stereo_net_matches_jax(weights, warp_mode):
 
 
 @pytest.mark.parametrize("knob", [dict(volume_channels=16), dict(stereo_fusion=False),
-                                  dict(backend="resnet34"), dict(backbone_stride=8),
                                   dict(realworld_pts=True), dict(fuse_views=True)])
 def test_stereo_net_rejects_unported_knobs(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_stereo.StereoPoseNetWithDepth(**{**KNOBS, **knob})
+
+
+@pytest.mark.parametrize("knob,match", [(dict(backend="resnet50"), "backend"),
+                                        (dict(backbone_stride=64), "stride")])
+def test_stereo_net_rejects_unknown_backend_and_stride(knob, match):
+    """As the JAX module's tables do: resnet34/18/10s at stride 8, 16 or 32."""
+    with pytest.raises(ValueError, match=match):
         port_stereo.StereoPoseNetWithDepth(**{**KNOBS, **knob})
 
 
