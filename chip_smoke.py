@@ -25,9 +25,11 @@ every launch counter set to 0 just before it and read just after. Phases:
      just before it and read just after
   6. the same estimate on the card and on the CPU (plain path)
   7. timings: each kernel's device time (torch.profiler) beside its bound,
-     its plain version's and the library call's; back-to-back call times
-     (CUDA events, ``perfutil.bench``); estimate wall time, device busy
-     time and the kernels that take it, at B=8 and B=64
+     its plain version's and the library call's, for K1 at B=8 and B=64
+     (192 px) and at B=16 (224 px, the paper size), and at B=8 also with
+     the L2 flushed before each launch; back-to-back call times (CUDA
+     events, ``perfutil.bench``); estimate wall time, device busy time and
+     the kernels that take it, at B=8 and B=64
   8. the gather probe: K5 at (16, 112, 32, 24) bf16 through the probe's
      ``run``, bit-exact against ``index_select``
   9. the paper-size estimate at B=8 and B=16 (K1 twice per estimate, K1
@@ -37,7 +39,8 @@ every launch counter set to 0 just before it and read just after. Phases:
      time, busy time, idle share and top kernels at B=8 and B=16, and where
      the warp and the point gathers rank among them
 
-Phase 3 also holds K5 against its plain version, bit-exact, at
+Phase 3 also holds K1 against its plain version on a reversed window (an
+empty mask gives a window of negative side), and K5, bit-exact, at
 (16, 112, 32, 24) in bf16 and f32 and at (1, 640, 8, 2), where the index
 arithmetic wraps around int32.
 
@@ -59,6 +62,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H, W = 480, 640
 STEPS, B_MAIN, B_WIDE = 4, 8, 64
 B_PAPER = (8, 16)              # the evaluation's num_envs; the probe's batch
+S_PAPER = 224                  # adapose_cabinet's img_size
+L2_FLUSH_BYTES = 96 * 2 ** 20  # written between launches for an L2-cold reading (L2: 50 MB)
 B_PAPER_CPU = 2
 PAPER_OVERRIDES = {}           # none: the configuration as its file gives it
 K5_WRAP_SHAPE = (1, 640, 8, 2)  # B, S, C, D: HW = 409,600, the index wraps int32
@@ -81,21 +86,32 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def device_times(torch, fn, n=20):
+def device_times(torch, fn, n=20, attempts=3):
     """Device time per call, by kernel name: torch.profiler over ``n`` calls
-    after one warm-up call."""
+    after one warm-up call. A profile now and then holds no device events at
+    all; the calls are then profiled again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
-    check(out, "torch.profiler recorded no device time")
-    return out
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+        if out:
+            return out
+    raise SmokeError(f"torch.profiler recorded no device time in {attempts} profiles")
+
+
+def cold_device_times(torch, fn, flush, n=20):
+    """``device_times`` of ``fn`` with ``flush`` (a write that evicts the L2)
+    before each call; the flush's own kernels are left out."""
+    own = set(device_times(torch, flush, n=2))
+    both = device_times(torch, lambda: (flush(), fn()), n=n)
+    return {k: v for k, v in both.items() if k not in own}
 
 
 def host_ms(torch, fn, reps=7):
@@ -511,6 +527,14 @@ def run():
             f"(limit 1e-5), bf16 within one ulp; windows "
             f"{sorted(set(int(round(float(v) * S)) for v in win[2]))} px incl. "
             f"frame corners")
+    _, r1, m1, _, _, _, _ = pair(np, rng, B_MAIN)
+    m1[0] = False                      # an empty mask: rmin 460, rmax 20, side -440
+    win = k1_windows(torch, torch.from_numpy(m1).to(dev), S)
+    check(float(win[2][0]) < 0, "the empty mask did not give a reversed window")
+    err = k1_check(torch, k1, torch.from_numpy(r1).to(dev), win, S, "reversed window")
+    say("k1", f"B={B_MAIN} with a reversed window (empty mask, side "
+        f"{float(win[2][0]) * S:.0f} px): kernel vs plain max |err| f32 {err:.3g}, bf16 "
+        f"within one ulp")
     k5_errs = []
     probe_shape = try_gather.DEFAULT_SHAPE
     for shape, dtype in ((probe_shape, "bfloat16"), (K5_WRAP_SHAPE, "bfloat16"),
@@ -589,41 +613,55 @@ def run():
 
     # 7. timings ------------------------------------------------------------
     rows = []
-    for B in (B_MAIN, B_WIDE):
+    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    for B, Sk in ((B_MAIN, S), (B_WIDE, S), (B_PAPER[1], S_PAPER)):
         if B == B_MAIN:   # the service loop's first view-1 batch and windows
             rgb = torch.from_numpy(step_inputs[0][1]).to(dev)
-            win = k1_windows(torch, torch.from_numpy(step_inputs[0][2]).to(dev), S)
+            win = k1_windows(torch, torch.from_numpy(step_inputs[0][2]).to(dev), Sk)
         else:
             _, rw, mw, _, _, _, _ = pair(np, np.random.default_rng(1), B)
             rgb = torch.from_numpy(rw).to(dev)
-            win = k1_windows(torch, torch.from_numpy(mw).to(dev), S)
-        err = k1_check(torch, k1, rgb, win, S, f"timed B={B}")
-        grid = grid_for(torch, *win, S)
+            win = k1_windows(torch, torch.from_numpy(mw).to(dev), Sk)
+        err = k1_check(torch, k1, rgb, win, Sk, f"timed B={B} S={Sk}")
+        grid = grid_for(torch, *win, Sk)
         calls = {
-            "kernel": lambda x: k1.crop_resize_normalize(x, *win, S),
-            "plain": lambda x: k1.crop_resize_normalize_plain(x, *win, S),
+            "kernel": lambda x: k1.crop_resize_normalize(x, *win, Sk),
+            "plain": lambda x: k1.crop_resize_normalize_plain(x, *win, Sk),
             "library": lambda x: F.grid_sample(x.permute(0, 3, 1, 2), grid, mode="bilinear",
                                                padding_mode="border", align_corners=False),
         }
-        dev_ms = {k: device_times(torch, lambda fn=fn: fn(rgb)) for k, fn in calls.items()}
-        kern = {n: v for n, v in dev_ms["kernel"].items() if "crop_resize_normalize_kernel" in n}
-        check(len(kern) == 1, f"the profiler did not see K1's kernel: {sorted(dev_ms['kernel'])}")
-        ms = {"kernel": sum(kern.values()), "plain": sum(dev_ms["plain"].values()),
-              "library": sum(dev_ms["library"].values())}
+
+        def k1_ms(times):
+            kern = {n: v for n, v in times["kernel"].items()
+                    if "crop_resize_normalize_kernel" in n}
+            check(len(kern) == 1, f"the profiler did not see K1's kernel: {sorted(times['kernel'])}")
+            return {"kernel": sum(kern.values()), "plain": sum(times["plain"].values()),
+                    "library": sum(times["library"].values())}
+
+        ms = k1_ms({k: device_times(torch, lambda fn=fn: fn(rgb)) for k, fn in calls.items()})
         call_ms = {k: bench(fn, rgb, iters=20, reps=5) for k, fn in calls.items()}
-        bound, bound_by = k1_bound(torch, *win, S)
+        bound, bound_by = k1_bound(torch, *win, Sk)
         lib = calls["library"](rgb).permute(0, 2, 3, 1)
         mean = torch.tensor(k1.IMAGENET_MEAN, device=dev)
         std = torch.tensor(k1.IMAGENET_STD, device=dev)
         lib_err = ((lib - mean) / std - calls["kernel"](rgb)).abs().max().item()
-        say("time", f"{card} | K1 B={B} {H}x{W}->{S} f32, device time per call: "
+        say("time", f"{card} | K1 B={B} {H}x{W}->{Sk} f32, device time per call: "
             f"kernel {ms['kernel']:.4f} ms ({bound / ms['kernel'] * 100:.1f}% of the "
             f"{bound:.4f} ms {bound_by} bound), plain {ms['plain']:.4f} ms, "
             f"grid_sample {ms['library']:.4f} ms (|diff| {lib_err:.2g} after "
             f"normalising) | back-to-back calls, CUDA events: wrapper "
             f"{call_ms['kernel']:.4f} ms, plain {call_ms['plain']:.4f} ms, "
             f"grid_sample {call_ms['library']:.4f} ms")
+        if B == B_MAIN:   # the frames (29.5 MB) stay in L2 between warm calls
+            cold = k1_ms({k: cold_device_times(torch, lambda fn=fn: fn(rgb), flush_buf.zero_)
+                          for k, fn in calls.items()})
+            say("time", f"{card} | K1 B={B} {H}x{W}->{Sk} f32, L2 flushed before each "
+                f"launch ({L2_FLUSH_BYTES / 2 ** 20:.0f} MiB written), device time per "
+                f"call: kernel {cold['kernel']:.4f} ms ({bound / cold['kernel'] * 100:.1f}% "
+                f"of the bound), plain {cold['plain']:.4f} ms, grid_sample "
+                f"{cold['library']:.4f} ms")
         rows.append((B, ms, bound, bound_by, err))
+    del flush_buf
 
     for B in (B_MAIN, B_WIDE):
         K, r1, m1, e1, r2, m2, e2 = (as_t(a).to(dev) for a in

@@ -10,6 +10,8 @@ out-of-scene sentinel bbox (+10 offset).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -19,7 +21,7 @@ from ...ops.preprocess import depth_hypotheses, prepare_model_input
 from ...utils.checkpoint import load_checkpoint
 from ...utils.logger import get_logger
 from .base_estimator import BasePoseEstimator
-from .converter import load_jax_params
+from .converter import load_jax_params, load_torch_state_dict
 from .nets.stereo import StereoPoseNetWithDepth, flax_init_
 
 DEFAULT_BBOX = np.array([
@@ -85,21 +87,42 @@ class AdaPoseEstimator(BasePoseEstimator):
                 "real_world": self.real_world}
 
     def load(self, path: str):
-        """Load a flax msgpack checkpoint of the JAX package, validating its
-        architecture metadata against this estimator's knobs."""
+        """Load a checkpoint into the network, as the JAX package's
+        ``AdaPoseEstimator.load`` does:
+        - a flax msgpack checkpoint of the JAX package, its architecture
+          metadata validated against this estimator's knobs;
+        - a reference ``.pth`` state dict (``converter.load_torch_state_dict``),
+          which carries no metadata and is restored unvalidated;
+        - a path that does not exist: a warning, and the estimator runs on
+          its seeded initial weights (the reference's random init)."""
         path = repo_path(path)
-        tree, meta = load_checkpoint(path)
-        mine = self._arch_meta()
-        if meta:
-            bad = {k: (meta[k], mine[k]) for k in mine
-                   if k in meta and meta[k] != mine[k]}
-            if bad:
-                raise ValueError(f"checkpoint {path} was trained with different "
-                                 f"architecture knobs (saved vs current): {bad}")
-        else:
+        if not os.path.exists(path):
+            self.logger.warning(f"checkpoint {path} not found; using random init")
+            return
+        if path.endswith(".pth"):
+            missing, unknown = load_torch_state_dict(self.model, path)
+            if unknown:
+                self.logger.warning(f"converter: {len(unknown)} unmapped torch keys, "
+                                    f"e.g. {unknown[:5]}")
+            if missing:
+                self.logger.warning(f"checkpoint {path} holds no value for "
+                                    f"{len(missing)} parameters, e.g. {missing[:5]}; "
+                                    f"they keep their initial values")
             self.logger.warning(f"checkpoint {path} has no architecture "
                                 f"metadata; restoring unvalidated")
-        load_jax_params(self.model, tree["params"], tree.get("batch_stats", {}))
+        else:
+            tree, meta = load_checkpoint(path)
+            mine = self._arch_meta()
+            if meta:
+                bad = {k: (meta[k], mine[k]) for k in mine
+                       if k in meta and meta[k] != mine[k]}
+                if bad:
+                    raise ValueError(f"checkpoint {path} was trained with different "
+                                     f"architecture knobs (saved vs current): {bad}")
+            else:
+                self.logger.warning(f"checkpoint {path} has no architecture "
+                                    f"metadata; restoring unvalidated")
+            load_jax_params(self.model, tree["params"], tree.get("batch_stats", {}))
         self.logger.info(f"loaded estimator checkpoint {path}")
 
     @torch.inference_mode()

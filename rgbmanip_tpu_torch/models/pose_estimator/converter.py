@@ -1,11 +1,13 @@
-"""Carry the JAX package's estimator weights (a flax tree of numpy arrays)
-into the port's ``StereoPoseNetWithDepth``.
+"""Carry estimator weights into the port's ``StereoPoseNetWithDepth``: the
+JAX package's (a flax tree of numpy arrays, ``load_jax_params``) and the
+reference's released torch state dicts (a ``.pth`` file,
+``load_torch_state_dict``).
 
 The port's modules are named after the reference torch state_dict keys, so
 the key map below is the JAX package's ``converter.torch_key_map`` (torch key
 -> flax path), with the block counts and downsample convs of the model's
 backend (resnet34, resnet18 or resnet10s), and a ``.pth`` of the reference
-loads into the same names later. The backbone stride changes no parameter:
+loads into the same names. The backbone stride changes no parameter:
 a stride-8 downsample conv is a 1x1 conv of stride 1, and the slim
 resnet10s ``up_1`` a 1x1 conv. Layouts, flax -> torch:
 
@@ -21,7 +23,7 @@ resnet10s ``up_1`` a 1x1 conv. Layouts, flax -> torch:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -135,3 +137,37 @@ def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> 
     with torch.no_grad():
         for k, w in new_state.items():
             state[k].copy_(w)
+
+
+def load_torch_state_dict(model: torch.nn.Module, path: str) -> Tuple[List[str], List[str]]:
+    """Load a reference ``.pth`` state dict into ``model`` in place, with the
+    semantics of the JAX package's ``convert_torch_checkpoint``: a
+    ``module.`` prefix (the reference saved through ``nn.DataParallel``) is
+    stripped, ``num_batches_tracked`` skipped, keys outside the key map of
+    the model's backend are reported and left out, and a parameter the file
+    does not hold keeps its initial value. A Conv1d weight (O, I, 1) loads
+    into the port's Linear (O, I). Raises on a tensor whose shape does not
+    match. Returns the (missing, unknown) keys."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    kmap = torch_key_map(model.backend)
+    state = model.state_dict()
+    new_state, unknown = {}, []
+    for key, w in obj.items():
+        key = key[len("module."):] if key.startswith("module.") else key
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key not in kmap:
+            unknown.append(key)
+            continue
+        want = tuple(state[key].shape)
+        if w.dim() == len(want) + 1 and w.shape[-1] == 1:
+            w = w[..., 0]
+        if tuple(w.shape) != want:
+            raise ValueError(f"{key}: the file holds shape {tuple(w.shape)}, the port "
+                             f"expects {want}")
+        new_state[key] = w.float()
+    missing = [k for k in kmap if k not in new_state]
+    model.load_state_dict(new_state, strict=False)
+    return missing, unknown

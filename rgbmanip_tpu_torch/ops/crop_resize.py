@@ -115,10 +115,11 @@ def _check(rgb, rmin, cmin, inv_ratio, out_dtype):
 
 def crop_resize_normalize(rgb, rmin, cmin, inv_ratio, out_size: int = 224,
                           out_dtype=torch.float32):
-    """K1. rgb (B, H, W, 3) f32 contiguous in [0, 1]; rmin/cmin/inv_ratio
-    (B,) on the same device. Returns (B, S, S, 3) normalised, in ``out_dtype``
-    (float32 or bfloat16). A CUDA tensor goes through the kernel (or the call
-    raises); only a CPU tensor takes the plain version."""
+    """K1. rgb (B, H, W, 3) f32 contiguous in [0, 1] (on the card also
+    16-byte aligned); rmin/cmin/inv_ratio (B,) on the same device. Returns
+    (B, S, S, 3) normalised, in ``out_dtype`` (float32 or bfloat16). A CUDA
+    tensor goes through the kernel (or the call raises); only a CPU tensor
+    takes the plain version."""
     _check(rgb, rmin, cmin, inv_ratio, out_dtype)
     if rgb.device.type == "cpu":
         return crop_resize_normalize_plain(rgb, rmin, cmin, inv_ratio, out_size,
@@ -126,6 +127,12 @@ def crop_resize_normalize(rgb, rmin, cmin, inv_ratio, out_size: int = 224,
     if rgb.device.type != "cuda":
         raise ValueError(f"no kernel for device {rgb.device}")
     B, H, W, _ = rgb.shape
+    if rgb.data_ptr() % 16:
+        raise ValueError("rgb must be 16-byte aligned (a view at an offset?): the "
+                         "kernel reads it in 16-byte vectors")
+    if B > 65535 or H * W * 3 >= 2 ** 31:
+        raise ValueError(f"shape (B={B}, H={H}, W={W}) is past the kernel's grid "
+                         f"(B <= 65535) or its 32-bit frame indexing")
     win = window_params(rmin, cmin, inv_ratio).contiguous()
     out = torch.empty((B, out_size, out_size, 3), dtype=out_dtype,
                       device=rgb.device)

@@ -68,6 +68,73 @@ def test_k1_kernel_rejects_a_strided_frame(cuda):
         k1.crop_resize_normalize(rgb, *[t[:1] for t in window(cuda)], S)
 
 
+def sweep_windows(S):
+    """(rmin, cmin, side) windows for the kernel-vs-plain sweep: every 40 px
+    side from 40 to 440, each centred and at each of the four frame corners
+    (so at all four borders), and two reversed windows (a negative side): the
+    one an empty mask gives, and one that runs past the top-left corner."""
+    wins = []
+    for side in range(40, 441, 40):
+        wins += [((H - side) // 2, (W - side) // 2, side), (0, 0, side), (0, W - side, side),
+                 (H - side, 0, side), (H - side, W - side, side)]
+    return wins + [(460, 540, -440), (30, 20, -120)]
+
+
+def batches(windows, B, dev):
+    """The windows in batches of B (the last one filled up from the start),
+    as (rmin, cmin, inv_ratio) with inv_ratio = side * f32(1 / S), as
+    ``prepare_model_input`` computes it."""
+    wins = list(windows)
+    wins += wins[:(-len(wins)) % B]
+    for i in range(0, len(wins), B):
+        w = torch.tensor(wins[i:i + B], dtype=torch.float32, device=dev)
+        yield w[:, 0], w[:, 1], w[:, 2]
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("S_out", [64, 192, 224, 65])
+def test_k1_kernel_equals_plain_over_the_window_sweep(cuda, S_out, B):
+    """f32 bit for bit (the same operations, rounded at the same places);
+    bf16 within one bf16 ulp of the f32 plain version. S = 65 makes a row of
+    S * 3 values that is not a whole number of 4-value vectors."""
+    g = torch.Generator(device=cuda).manual_seed(S_out + B)
+    rgb = torch.rand(B, H, W, 3, generator=g, device=cuda)
+    scale = torch.tensor(1.0 / S_out, dtype=torch.float32, device=cuda)
+    for rmin, cmin, side in batches(sweep_windows(S_out), B, cuda):
+        win = (rmin, cmin, side * scale)
+        before = k1.crop_resize_normalize.launches
+        out = k1.crop_resize_normalize(rgb, *win, S_out)
+        out16 = k1.crop_resize_normalize(rgb, *win, S_out, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert k1.crop_resize_normalize.launches == before + 2
+        ref = k1.crop_resize_normalize_plain(rgb, *win, S_out)
+        assert out.shape == ref.shape == (B, S_out, S_out, 3)
+        bad = (out != ref).any(-1).nonzero()
+        assert bad.numel() == 0, f"S={S_out} B={B}: first (b, y, x) differing {bad[:4].tolist()}"
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+        assert ((out16.float() - ref).abs() <= ulp).all()
+
+
+def test_k1_kernel_equals_plain_on_a_frame_of_odd_width(cuda):
+    """W = 642: a frame row of 1,926 floats is not a whole number of 16-byte
+    vectors, so the kernel's vertical pass takes scalar loads."""
+    Wo = 642
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rgb = torch.rand(4, H, Wo, 3, generator=g, device=cuda)
+    w = torch.tensor([(180, 260, 120), (0, Wo - 40, 40), (20, 100, 440), (460, 540, -440)],
+                     dtype=torch.float32, device=cuda)
+    win = (w[:, 0], w[:, 1], w[:, 2] * torch.tensor(1.0 / S, device=cuda))
+    out = k1.crop_resize_normalize(rgb, *win, S)
+    assert torch.equal(out, k1.crop_resize_normalize_plain(rgb, *win, S))
+
+
+def test_k1_kernel_rejects_a_misaligned_frame(cuda):
+    rgb = torch.zeros(H * W * 3 + 1, device=cuda)[1:].view(1, H, W, 3)
+    assert rgb.is_contiguous() and rgb.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="aligned"):
+        k1.crop_resize_normalize(rgb, *[t[:1] for t in window(cuda)], S)
+
+
 def scene(B, seed=0):
     rng = np.random.default_rng(seed)
     rgb = rng.uniform(0.1, 0.7, size=(2, B, H, W, 3)).astype(np.float32)

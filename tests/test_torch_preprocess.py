@@ -78,6 +78,72 @@ def test_k1_plain_matches_pallas_kernel_whole_output():
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
 
 
+# reversed windows (rmin, cmin, side < 0): the one an empty mask gives, and
+# one that runs past the top-left corner, beside a forward window
+REVERSED = {"empty-mask": [(460, 540, -440)],
+            "past-the-corner": [(30, 20, -120), (180, 260, 120)]}
+
+
+def test_empty_mask_gives_a_reversed_window():
+    """Both packages turn an empty mask into rmin 460, rmax 20 (side -440),
+    cmin 540, cmax 100; the estimate still runs K1 on such a view."""
+    from rgbmanip_tpu.ops.preprocess import mask_bbox_batched, square_window_batched
+
+    mask = np.zeros((1, H, W), bool)
+    ref = square_window_batched(*mask_bbox_batched(jnp.asarray(mask))[:4], H, W)
+    out = port_pre.square_window_batched(*port_pre.mask_bbox_batched(
+        torch.from_numpy(mask).float())[:4], H, W)
+    assert [int(np.asarray(r)[0]) for r in ref] == [int(o[0]) for o in out] == [460, 20, 540, 100]
+
+
+@pytest.mark.parametrize("case", sorted(REVERSED))
+def test_k1_plain_matches_pallas_kernel_on_reversed_windows(case):
+    """inv_ratio < 0: the source coordinate runs backwards through the
+    window; the hat rows and their renormalisation at the border are those of
+    the Pallas kernel (interpret mode), to the same 1e-5 as the forward
+    windows."""
+    from rgbmanip_tpu.ops.pallas_preprocess import crop_resize_normalize
+
+    windows = REVERSED[case]
+    rgb = frames(len(windows), seed=5)
+    rmin, cmin, ratio = window_arrays(windows)
+    ref = np.asarray(crop_resize_normalize(
+        jnp.asarray(rgb), jnp.asarray(rmin), jnp.asarray(cmin), jnp.asarray(ratio),
+        out_size=S, out_dtype=jnp.float32, interpret=True))
+    win = port_window(windows)
+    assert (win[2][0] < 0).item()
+    out = port_k1.crop_resize_normalize(torch.from_numpy(rgb), *win, out_size=S).numpy()
+    assert out.shape == ref.shape == (len(windows), S, S, 3)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("std", port_k1.IMAGENET_STD)
+def test_k1_kernel_division_by_std_is_correctly_rounded(std):
+    """The CUDA kernel divides by std as q = RN(x * y), y = RN(1 / std), and
+    one FMA step, q + (x - q * std) * y. For each of the three divisors that
+    equals the IEEE quotient (the plain version's division) for every f32 x
+    in [1, 2), and so, scaled by powers of two and by sign, for every normal
+    x. Emulated here exactly: the products of two f32 are exact in f64, and
+    the f64 sum of the last step is rounded twice only where it lands on an
+    f32 midpoint, which the test counts."""
+    d = np.float32(std)
+    y = np.float32(1) / d
+    midpoints = 0
+    for start in range(0, 2 ** 23, 2 ** 21):
+        m = np.arange(start, start + 2 ** 21, dtype=np.uint32) | np.uint32(0x3F800000)
+        x = m.view(np.float32)
+        q = (x.astype(np.float64) * float(y)).astype(np.float32)
+        r = (x.astype(np.float64) - q.astype(np.float64) * float(d)).astype(np.float32)
+        s = q.astype(np.float64) + r.astype(np.float64) * float(y)
+        q2 = s.astype(np.float32)
+        up = np.nextafter(q2, np.float32(np.inf)).astype(np.float64)
+        down = np.nextafter(q2, np.float32(-np.inf)).astype(np.float64)
+        q64 = q2.astype(np.float64)
+        midpoints += int(((s == (q64 + up) / 2) | (s == (q64 + down) / 2)).sum())
+        np.testing.assert_array_equal(q2, x / d)
+    assert midpoints == 0
+
+
 def test_k1_border_rows_are_renormalised_not_clamped():
     """At the corner window the first output row reads src row -0.40: the
     hat row keeps only row 0 and renormalises it to weight 1."""
