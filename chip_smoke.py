@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py    # from the repo root, on a machine with a card
 
-The script drives three paths of the port. The main one is the flagship
-evaluation's estimate/policy/fuse service (``controller=rl``,
-``pose_estimator=adapose_cabinet_fast`` with
-``checkpoints/estimator_fast_cabinet_aug_r5.ckpt``, 8 envs): per step the PPO
-actor picks the next camera pose, the estimator turns each env's last two
-640x480 views into a world bbox, and ``consensus_fuse`` merges the per-step
-bboxes. The second is the row-gather probe (``scripts/try_gather.py``, the
-one entry point of kernel K5) at its default shape; the third the
-paper-size estimator (``adapose_cabinet``: resnet34 at backbone stride 8,
-224 px, a 112x112x24 cost volume, 1024 points) on weights made from a seed,
-since its released weights are not in the repo. The views are synthetic
-and made from a seed; the simulator is not ported yet. Each path runs with
-every launch counter set to 0 just before it and read just after. Phases:
+The script drives four paths of the port. The main one is the flagship
+evaluation itself (``python -m rgbmanip_tpu_torch.train`` with
+``controller=rl``, ``pose_estimator=adapose_cabinet_fast`` and
+``checkpoints/estimator_fast_cabinet_aug_r5.ckpt``, 8 envs, seed 11; the
+protocol of ``scripts/r5_cabinet_evals.sh``): the simulator renders each
+view on the host, the PPO actor on the card picks the next camera pose, the
+estimator on the card turns each env's last two views into a world bbox
+(K1 on every estimate), ``consensus_fuse`` merges the per-step bboxes and
+the scripted skill opens the door. Before it, the same estimate/policy/fuse
+service runs on synthetic views made from a seed. The second path is the
+row-gather probe (``scripts/try_gather.py``, the one entry point of kernel
+K5) at its default shape; the third the paper-size estimator
+(``adapose_cabinet``: resnet34 at backbone stride 8, 224 px, a 112x112x24
+cost volume, 1024 points) on weights made from a seed, since its released
+weights are not in the repo. Each path runs with every launch counter set
+to 0 just before it and read just after. Phases:
 
   1. card: name, power limit, versions; TF32 off for the f32 phases
-  2. build every kernel of the path with nvcc (sm_90a), all at once
+  2. build every kernel of the path with nvcc (sm_90a) and the simulator's
+     C++ core with g++, all at once
   3. each kernel against its plain PyTorch version on the card
   4. load the estimator and the policy onto the card
   5. the service loop, B=8, 4 steps, with every launch counter set to 0
@@ -38,6 +42,18 @@ every launch counter set to 0 just before it and read just after. Phases:
      ``index_select``'s; the gather-regime sweep; the paper estimate's wall
      time, busy time, idle share and top kernels at B=8 and B=16, and where
      the warp and the point gathers rank among them
+ 11. the flagship evaluation, one round of 8 episodes through
+     ``rgbmanip_tpu_torch.train``'s functions on the card, with every launch
+     counter set to 0 just before it and read just after: success rate,
+     move distance and seconds per episode (printed, not gated), the
+     PhaseTimer split, the host-to-device copy per estimate; K1 bit for bit
+     against its plain version on every window the round fed it; the same
+     round on the CPU with the same point-sampling draws (made on the CPU
+     from one seed) and the card's camera moves, gated on equal frames,
+     actions within 1e-5, two-view estimates and the fused bbox within
+     1e-3 m, equal success; and the user's command through ``train.main``
+     under ``RGBMANIP_PROFILE``, gated on ``result.json`` and on K1 launches
+     inside the loop's ``estimate`` ranges of the trace
 
 Phase 3 also holds K1 against its plain version on a reversed window (an
 empty mask gives a window of negative side), and K5, bit-exact, at
@@ -52,6 +68,7 @@ prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -70,6 +87,14 @@ K5_WRAP_SHAPE = (1, 640, 8, 2)  # B, S, C, D: HW = 409,600, the index wraps int3
 CKPT_EST = "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"
 CKPT_POLICY = "checkpoints/ppo_rl_coadapt_model_165.ckpt"
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+# the flagship evaluation, as scripts/r5_cabinet_evals.sh runs it, one round
+FLAGSHIP = ["dataset=cabinet_test", "task=open_cabinet", "manipulation=open_cabinet",
+            "controller=rl", f"controller.load={CKPT_POLICY}",
+            "pose_estimator=adapose_cabinet_fast",
+            f"pose_estimator.checkpoint_path={CKPT_EST}",
+            "controller.estimate_fusion=consensus", "controller.early_stop=4",
+            "train=test", "train.total_round=8", "task.num_envs=8", "seed=11"]
+EVAL_DRAW_SEED = 11            # the round's point-sampling draws, made on the CPU
 K_CAM = ((439.3, 0.0, 320.0), (0.0, 439.3, 240.0), (0.0, 0.0, 1.0))
 
 
@@ -125,6 +150,243 @@ def host_ms(torch, fn, reps=7):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# --------------------------------------------------------- the evaluation --
+def eval_round(np, torch, T, cfg, device, draws, drive=None):
+    """One round of the flagship evaluation through ``rgbmanip_tpu_torch.train``'s
+    functions on ``device``. Every estimate takes its point-sampling draws
+    from ``draws``: made on the CPU from one seed on the first run, replayed
+    on the second. Records each step's action, reward, view and estimate, the
+    fused estimate, and the estimator's arguments. With ``drive`` (the first
+    run's record) each step moves the camera by the first run's action and
+    the skill acts on its fused estimate, while the record keeps this run's
+    own: the two actors' f32 actions differ in the last bits, and a camera
+    target moved by that much changes pixels at the edges of the rendered
+    parts (tests/test_torch_rl_loop.py)."""
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+    log = get_logger()
+    rec = {"actions": [], "frames": [], "masks": [], "pred_bbox": [], "calls": [],
+           "devices": set()}
+    gen = torch.Generator().manual_seed(EVAL_DRAW_SEED)
+    env = T.prepare_env(cfg["task"], cfg["dataset"], log=log, seed=cfg["seed"])
+    try:
+        manip = T.prepare_manipulation(env, cfg["manipulation"], log)
+        est = T.prepare_pose_estimator(env, cfg["pose_estimator"], log, device)
+        ctrl = T.prepare_controller(env, est, manip, cfg["controller"], cfg, log,
+                                    device=device)
+        rec["param_devices"] = {p.device.type for p in est.model.parameters()} | \
+            {p.device.type for p in ctrl.policy.model.parameters()}
+        estimate, call = est._estimate, est._call_estimate
+
+        def drawn(K, rgb1, mask1, ext1, rgb2, mask2, ext2, rand1, rand2):
+            i = len(rec["calls"]) - 1
+            if i == len(draws):
+                B, n = rgb1.shape[0], est.img_size ** 2
+                draws.append((torch.rand(B, n, generator=gen), torch.rand(B, n, generator=gen)))
+            rec["devices"] |= {t.device.type for t in (K, rgb1, mask1, ext1, rgb2)}
+            u1, u2 = draws[i]
+            return estimate(K, rgb1, mask1, ext1, rgb2, mask2, ext2, u1.to(rgb1.device),
+                            u2.to(rgb1.device))
+
+        def kept(*args):
+            rec["calls"].append(args)      # numpy arrays made anew for each call
+            return call(*args)
+
+        est._estimate, est._call_estimate = drawn, kept
+        iface = ctrl.control_interface
+        step, act = iface.step, iface.call_manipulation
+
+        def rec_step(action, eval=False):
+            rec["actions"].append(np.array(action, np.float64))
+            if drive is not None:
+                action = drive["actions"][len(rec["actions"]) - 1]
+            out = step(action, eval=eval)
+            t = (iface.accumulate_steps - 1) % iface.max_steps
+            rec["frames"].append(iface.image_queue[t].copy())
+            rec["masks"].append(iface.mask_queue[t].copy())
+            rec["pred_bbox"].append(iface.pred_bbox[t].copy())
+            return out
+
+        def rec_act(estimation, eval=False):
+            rec["fused"] = np.array(estimation)
+            rec["stereo_ok"] = iface.stereo_ok().copy()
+            rec["views_so_far"] = np.cumsum(iface.available, axis=0)
+            rec["first_view"] = (iface.image_queue[0].copy(), iface.mask_queue[0].copy())
+            return act(drive["fused"] if drive is not None else estimation, eval)
+
+        iface.step, iface.call_manipulation = rec_step, rec_act
+        t0 = time.perf_counter()
+        rec["result"] = T.test(env, ctrl, cfg, log)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["phases"] = env.timer.summary()
+        obs = env.get_observation()
+        rec["success"] = np.array(obs["success"])
+        rec["move"] = np.array(obs["total_move_distance"])
+    finally:
+        env.close()
+    return rec
+
+
+def k1_in_estimate_spans(path):
+    """K1 kernels in a torch.profiler chrome trace whose launch lies inside
+    an ``estimate`` range (the PhaseTimer's), and all K1 kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "estimate"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "crop_resize_normalize" in e.get("name", "")]
+    inside = [e for e in k1 if any(a <= launch_ts.get(e["args"].get("correlation"), -1) <= b
+                                   for a, b in spans)]
+    return len(inside), len(k1), len(spans)
+
+
+def flagship_eval(np, torch, dev, card):
+    """The flagship evaluation on the card and on the CPU, and once more
+    through ``train.main`` under the profiler. Returns K1's launches in the
+    card round and the largest |kernel - plain| over the round's windows."""
+    import tempfile
+
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    cfg = load_config(FLAGSHIP + ["device=cuda"])
+    N = int(cfg["task"]["num_envs"])
+    draws = []
+    k1.crop_resize_normalize.launches = 0
+    k5.row_gather.launches = 0
+    card_rec = eval_round(np, torch, T, cfg, dev, draws)
+    launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                "row_gather": k5.row_gather.launches}
+    n_est = len(card_rec["calls"])
+    check(n_est >= 1 and launches["crop_resize_normalize"] == 2 * n_est,
+          f"K1 launched {launches['crop_resize_normalize']} times in {n_est} estimates "
+          f"of the round; the path launches it twice per estimate")
+    check(card_rec["param_devices"] == {"cuda"} and card_rec["devices"] == {"cuda"},
+          f"the estimator or the policy is not on the card: parameters on "
+          f"{card_rec['param_devices']}, estimate inputs on {card_rec['devices']}")
+    res = card_rec["result"]
+    secs = card_rec["seconds"]
+    say("eval", f"{card} | flagship evaluation on the card ({N} envs, seed 11, k=4, "
+        f"consensus): success {res['success_rate']:.2f}% (not gated: {res['rounds']} "
+        f"episodes), move distance {res['move_distance']:.3f} m; {secs:.2f} s for the "
+        f"round, {secs / res['rounds']:.3f} s/episode incl. the estimator's first "
+        f"call on this instance")
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(card_rec["phases"].items()))
+    say("eval", f"{card} | PhaseTimer split of the round (host clock; skill includes its "
+        f"own sim moves): {split}")
+    say("eval", f"{n_est} estimate calls of B={N} in the round ({n_est / N:.2f} per "
+        f"episode; each call estimates every env), K1 launches {launches} "
+        f"({launches['crop_resize_normalize'] / N:.2f} per episode, 2 per call)")
+
+    # the host-to-device copy of one of the round's estimates
+    args = card_rec["calls"][-1]
+    types = (torch.float32, torch.float32, torch.bool, torch.float32, torch.float32,
+             torch.bool, torch.float32)
+    mb = sum(np.asarray(a).size * torch.empty((), dtype=t).element_size()
+             for a, t in zip(args, types)) / 1e6
+
+    def h2d():
+        for a, t in zip(args, types):
+            torch.as_tensor(a, dtype=t, device=dev)
+    copy_ms = host_ms(torch, h2d, reps=7)
+    say("eval", f"{card} | host-to-device copy per estimate (the inputs of the round's "
+        f"last estimate, pageable numpy -> card, as _call_estimate makes it): {mb:.2f} MB "
+        f"in {copy_ms:.2f} ms ({mb / copy_ms:.2f} GB/s), median of 7")
+
+    # K1 against its plain version on every window the round fed it
+    err = 0.0
+    n_win = 0
+    for a in card_rec["calls"]:
+        for rgb, mask in ((a[1], a[2]), (a[4], a[5])):
+            rgb_t = torch.as_tensor(rgb, device=dev)
+            win = k1_windows(torch, torch.as_tensor(mask, device=dev), 192)
+            out = k1.crop_resize_normalize(rgb_t, *win, 192)
+            ref = k1.crop_resize_normalize_plain(rgb_t, *win, 192)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), "K1 differs from its plain version on a "
+                  "window of the evaluation round")
+            err = max(err, (out - ref).abs().max().item())
+            n_win += rgb.shape[0]
+    say("eval", f"K1 equals its plain version bit for bit on all {n_win} windows the "
+        f"round fed it (S=192, rendered frames)")
+
+    # the same round on the CPU, same draws, lock-stepped to the card's moves
+    t0 = time.perf_counter()
+    cpu_rec = eval_round(np, torch, T, load_config(FLAGSHIP + ["device=cpu"]),
+                         torch.device("cpu"), draws, drive=card_rec)
+    check(len(cpu_rec["actions"]) == len(card_rec["actions"]), "the CPU round took "
+          "another number of steps")
+    for i in range(2):
+        check(np.array_equal(cpu_rec["first_view"][i], card_rec["first_view"][i]),
+              "the first views differ between the card and the CPU rounds")
+    for t, (a, b) in enumerate(zip(cpu_rec["frames"], card_rec["frames"])):
+        check(np.array_equal(a, b) and np.array_equal(cpu_rec["masks"][t],
+                                                       card_rec["masks"][t]),
+              f"step {t + 1}: the rendered frames differ between the card and the CPU")
+    adiff = max(float(np.abs(a - b).max())
+                for a, b in zip(cpu_rec["actions"], card_rec["actions"]))
+    dup = card_rec["views_so_far"][1:len(card_rec["pred_bbox"]) + 1] == 1
+    bdiff = np.stack([np.abs(a - b).reshape(N, -1).max(-1) for a, b in
+                      zip(cpu_rec["pred_bbox"], card_rec["pred_bbox"])])
+    fdiff = float(np.abs(cpu_rec["fused"] - card_rec["fused"]).max())
+    say("eval", f"card vs CPU, same draws and moves ({time.perf_counter() - t0:.1f} s for "
+        f"the CPU round): frames and masks equal bit for bit at all "
+        f"{len(card_rec['frames'])} steps; max |action diff| {adiff:.3g} (limit 1e-5); "
+        f"max |pred_bbox diff| {bdiff[~dup].max(initial=0.0):.3g} m on the "
+        f"{int((~dup).sum())} two-view estimates (limit 1e-3), "
+        f"{bdiff[dup].max(initial=0.0):.3g} m on the {int(dup.sum())} estimates from one "
+        f"view duplicated (not gated: the warp's in-frame test flips on the volume's "
+        f"border for identical cameras); fused {fdiff:.3g} m (limit 1e-3); stereo_ok, "
+        f"success and move distance equal: "
+        f"{np.array_equal(cpu_rec['stereo_ok'], card_rec['stereo_ok'])}, "
+        f"{np.array_equal(cpu_rec['success'], card_rec['success'])}, "
+        f"{np.array_equal(cpu_rec['move'], card_rec['move'])}")
+    check(adiff <= 1e-5, "card and CPU actions differ")
+    check(bdiff[~dup].max(initial=0.0) <= 1e-3 and fdiff <= 1e-3,
+          "card and CPU estimates differ")
+    check(np.array_equal(cpu_rec["stereo_ok"], card_rec["stereo_ok"])
+          and np.array_equal(cpu_rec["success"], card_rec["success"])
+          and np.array_equal(cpu_rec["move"], card_rec["move"]),
+          "card and CPU rounds end differently")
+
+    # the user's command, through train.main, under the profiler
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        over = FLAGSHIP + ["device=cuda", f"train.save_dir={tmp}", f"train.log_dir={tmp}"]
+        for attempt in range(2):
+            os.environ["RGBMANIP_PROFILE"] = os.path.join(tmp, f"profile{attempt}")
+            try:
+                t0 = time.perf_counter()
+                result = T.main(over)
+                main_s = time.perf_counter() - t0
+            finally:
+                del os.environ["RGBMANIP_PROFILE"]
+            inside, n_k1, n_spans = k1_in_estimate_spans(
+                os.path.join(tmp, f"profile{attempt}", "trace.json"))
+            if n_k1:
+                break
+        saved = []
+        for r, _, fs in os.walk(tmp):
+            if "result.json" in fs:
+                with open(os.path.join(r, "result.json")) as f:
+                    saved.append(json.load(f))
+        check(result in saved, "train.main wrote no result.json of its result")
+    say("eval", f"python -m rgbmanip_tpu_torch.train {' '.join(FLAGSHIP)} device=cuda "
+        f"(train.main, RGBMANIP_PROFILE set): success {result['success_rate']:.2f}%, move "
+        f"{result['move_distance']:.3f} m over {result['rounds']} episodes (the "
+        f"estimator's own generator), result.json written; {main_s:.1f} s incl. set-up "
+        f"and the profiler; the trace holds {n_k1} K1 kernels, {inside} launched inside "
+        f"the {n_spans} 'estimate' ranges")
+    check(inside >= 1, "the profiler recorded no K1 launch inside the loop's estimates")
+    return launches, err
 
 
 # ----------------------------------------------------------------- inputs --
@@ -490,6 +752,7 @@ def run():
         from rgbmanip_tpu_torch.ops import row_gather as k5
         from rgbmanip_tpu_torch.scripts import try_gather
         from rgbmanip_tpu_torch.scripts.perfutil import bench, card_line
+        from rgbmanip_tpu_torch.sim import bindings as sim_bindings
     except ImportError as e:
         raise SmokeError(f"the port is not next to this script ({e})")
 
@@ -505,8 +768,12 @@ def run():
     # 2. build -------------------------------------------------------------
     kernels = ["crop_resize_normalize", "row_gather"]
     t0 = time.perf_counter()
-    _build.build_all(kernels)
-    say("build", f"{len(kernels)} kernel(s) built with nvcc for sm_90a in "
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+        sim_lib = ex.submit(sim_bindings.build)     # g++, beside the nvcc builds
+        _build.build_all(kernels)
+        sim_lib = sim_lib.result()
+    say("build", f"{len(kernels)} kernel(s) built with nvcc for sm_90a and the simulator "
+        f"with g++ ({os.path.basename(sim_lib)}), all at once, in "
         f"{time.perf_counter() - t0:.1f} s into build/")
     for name, report in _build.PTXAS_REPORTS.items():
         for line in report.splitlines():
@@ -695,14 +962,17 @@ def run():
     regime_timings(card)
     paper_timings(torch, paper, paper_inputs, card)
 
+    # 11. the flagship evaluation --------------------------------------------
+    eval_launches, eval_err = flagship_eval(np, torch, dev, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
         "route": "cuda",
         "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
         "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:54",
-        "launches": launches["crop_resize_normalize"],
-        "max_abs_err": err,
+        "launches": eval_launches["crop_resize_normalize"],
+        "max_abs_err": max(err, eval_err),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
         "bound_ms": bound,

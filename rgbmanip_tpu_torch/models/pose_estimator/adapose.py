@@ -163,7 +163,7 @@ class AdaPoseEstimator(BasePoseEstimator):
         bbox_cam = G.transform_coordinates_3d(G.get_3d_bbox(size), sRT)  # (B, 3, 8)
         ok = torch.isfinite(ts) & torch.isfinite(bbox_cam).reshape(B, -1).all(-1)
 
-        ex_inv = torch.linalg.inv(ext1)
+        ex_inv = torch.linalg.inv_ex(ext1).inverse    # NaN, not an error, if singular
         bbox_world = (ex_inv[:, :3, :3] @ bbox_cam + ex_inv[:, :3, 3:4]).transpose(1, 2)
         valid = ok1 & ok2 & ok & torch.isfinite(bbox_world).reshape(B, -1).all(-1)
         default = torch.as_tensor(DEFAULT_BBOX, device=bbox_world.device)

@@ -44,7 +44,11 @@ def homo_warp_batched(src_feat, src_proj, ref_proj, depth_values,
     falls behind the camera. mode: "bilinear" (4 taps) or "nearest"."""
     B, H, W, C = src_feat.shape
     D = depth_values.shape[1]
-    proj = src_proj @ torch.linalg.inv(ref_proj)                  # (B, 4, 4)
+    # inv_ex: a singular projection (an env with no valid view yet, whose
+    # extrinsics ControlInterface.get_estimation leaves at zero) gives NaN as
+    # jnp.linalg.inv does, and that env's estimate falls back to the
+    # sentinel; torch.linalg.inv would raise for the whole batch
+    proj = src_proj @ torch.linalg.inv_ex(ref_proj).inverse       # (B, 4, 4)
     rot = proj[:, :3, :3]
     trans = proj[:, :3, 3]
 

@@ -231,3 +231,37 @@ def test_paper_estimate_on_card_matches_cpu(cuda):
     assert outs[1][1].any(), "no valid estimate: the comparison would be of sentinels"
     # f32 with TF32 off on both; cuDNN and the CPU sum in another order
     np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=0, atol=1e-3)
+
+
+def test_k1_kernel_equals_plain_on_rendered_views(cuda):
+    """K1 on the simulator's frames: one reset of ``OpenCabinetEnv`` at the
+    evaluation's 8 envs, the camera at ControlInterface's first view, the
+    crop windows of the rendered handle masks, S=192; bit for bit."""
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.ops.preprocess import mask_bbox_batched, square_window_batched
+    from rgbmanip_tpu_torch.train import prepare_env
+    from rgbmanip_tpu_torch.utils.transform import lookat_quat
+
+    cfg = load_config(["dataset=cabinet_test", "controller=rl", "task.num_envs=8",
+                       "seed=11"])
+    env = prepare_env(cfg["task"], cfg["dataset"], seed=11)
+    try:
+        env.reset()
+        ctrl = cfg["controller"]["controller"]
+        pos = [ctrl["pose_min"][0], 0.0, (ctrl["pose_min"][2] + ctrl["pose_max"][2]) / 2]
+        pose = np.tile(np.concatenate([pos, lookat_quat(np.array([1.0, 0.0, -0.2]))]), (8, 1))
+        env.cam_move_to(pose, time=2, wait=1, planner="path", robot_frame=True,
+                        skip_move=True)
+        cam = env.get_image()["camera0"]
+    finally:
+        env.close()
+    assert cam["Mask"].any(), "no env saw its handle"
+    rgb = torch.from_numpy(cam["Color"]).to(cuda)
+    mask = torch.from_numpy(cam["Mask"]).to(cuda)
+    y1, x1, y2, x2, _ = mask_bbox_batched(mask.float())
+    rmin, rmax, cmin, _ = square_window_batched(y1, x1, y2, x2, H, W)
+    inv = (rmax - rmin).float() * torch.tensor(1.0 / S, device=cuda)
+    out = k1.crop_resize_normalize(rgb, rmin.float(), cmin.float(), inv, S)
+    ref = k1.crop_resize_normalize_plain(rgb, rmin.float(), cmin.float(), inv, S)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)

@@ -39,7 +39,9 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
-    assert "rgbmanip_tpu_torch.models.pose_estimator.adapose" in loaded
+    for m in ("models.pose_estimator.adapose", "sim.bindings", "envs.vec_env",
+              "assets.procedural", "train"):
+        assert f"rgbmanip_tpu_torch.{m}" in loaded
 
 
 def test_sources_import_no_jax():
@@ -65,6 +67,11 @@ def test_entry_points_default_to_the_card():
         AdaPoseEstimator(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         PPOPolicy(ActorCritic(60, 12))
+    from rgbmanip_tpu_torch.train import main
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["dataset=cabinet_test", "controller=rl",
+              "controller.load=checkpoints/ppo_rl_coadapt_model_165.ckpt",
+              "pose_estimator=adapose_cabinet_fast", "task.num_envs=1"])
     assert resolve_device("cpu").type == "cpu"
 
 
