@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # from the repo root, on a machine with a card
 
-The script drives four paths of the port. The main one is the flagship
+The script drives six paths of the port. The main one is the flagship
 evaluation itself (``python -m rgbmanip_tpu_torch.train`` with
 ``controller=rl``, ``pose_estimator=adapose_cabinet_fast`` and
 ``checkpoints/estimator_fast_cabinet_aug_r5.ckpt``, 8 envs, seed 11; the
@@ -17,8 +17,14 @@ row-gather probe (``scripts/try_gather.py``, the one entry point of kernel
 K5) at its default shape; the third the paper-size estimator
 (``adapose_cabinet``: resnet34 at backbone stride 8, 224 px, a 112x112x24
 cost volume, 1024 points) on weights made from a seed, since its released
-weights are not in the repo. Each path runs with every launch counter set
-to 0 just before it and read just after. Phases:
+weights are not in the repo. The last two are the trainers: PPO training of
+the camera scheduler (``python -m rgbmanip_tpu_torch.train controller=rl
+train=controller``, resumed from the committed policy) and the estimator's
+trainer (``python -m rgbmanip_tpu_torch.models.pose_estimator.train_estimator``
+at the production recipe of ``scripts/tunnel_watch_estimator.sh``, resumed
+from the committed head), both with K1 on every estimate or batch. Each path
+runs with every launch counter set to 0 just before it and read just after.
+Phases:
 
   1. card: name, power limit, versions; TF32 off for the f32 phases
   2. build every kernel of the path with nvcc (sm_90a) and the simulator's
@@ -54,6 +60,22 @@ to 0 just before it and read just after. Phases:
      1e-3 m, equal success; and the user's command through ``train.main``
      under ``RGBMANIP_PROFILE``, gated on ``result.json`` and on K1 launches
      inside the loop's ``estimate`` ranges of the trace
+ 12. PPO training through ``train.main`` (``train=controller``, 8 envs, 2
+     iterations of 16 transitions, into a temporary ``save_dir``): K1 twice
+     per rollout step, collect and learn seconds per iteration and the
+     PhaseTimer split; the last update again on the card and on the CPU from
+     the same batch and state (learning rates equal, parameters within 2e-5
+     for the actor and 2e-4 for the critic); the saved ``model_<it>.ckpt``
+     read back into a fresh trainer, equal
+ 13. the estimator's trainer through ``train_estimator.main`` (8 envs, reuse
+     8, 192 px, 5 steps): K1 twice per prepared batch; steps per second split
+     into render, preparation and train step, the host-to-device bytes; the
+     saved head loaded back, the same estimate within 1e-5 m; one step's device
+     time, idle share and top kernels, and the forward and backward device
+     time of the warp (K2), point samples (K3) and pose gathers (K4); one step
+     on the card against the CPU from the saved head (loss parts 1e-4
+     relative, BatchNorm statistics 1e-4, parameters within two learning
+     rates and rounding, 2.1e-4)
 
 Phase 3 also holds K1 against its plain version on a reversed window (an
 empty mask gives a window of negative side), and K5, bit-exact, at
@@ -95,6 +117,20 @@ FLAGSHIP = ["dataset=cabinet_test", "task=open_cabinet", "manipulation=open_cabi
             "controller.estimate_fusion=consensus", "controller.early_stop=4",
             "train=test", "train.total_round=8", "task.num_envs=8", "seed=11"]
 EVAL_DRAW_SEED = 11            # the round's point-sampling draws, made on the CPU
+# PPO training of the camera scheduler, resumed from the committed policy
+PPO_ITERS = 2
+PPO_TRAIN = ["dataset=cabinet_train", "task=open_cabinet", "manipulation=open_cabinet",
+             "controller=rl", f"controller.load={CKPT_POLICY}",
+             "pose_estimator=adapose_cabinet_fast",
+             f"pose_estimator.checkpoint_path={CKPT_EST}", "train=controller",
+             f"train.iterations_per_epoch={PPO_ITERS}", "task.num_envs=8", "seed=11"]
+# the estimator's production recipe (scripts/tunnel_watch_estimator.sh:66-70)
+EST_REUSE = 8
+EST_TRAIN = ["dataset=cabinet_train", "task=open_cabinet", "task.num_envs=8", "seed=7",
+             "img_size=192", "backend=resnet18", "backbone_stride=32", "volume_scale=8",
+             "n_depth=16", "d_interval=0.15", "warp_mode=nearest", f"reuse={EST_REUSE}"]
+EST_STEPS = 5
+EST_CPU_ENVS = 2               # envs of the card-vs-CPU training step
 K_CAM = ((439.3, 0.0, 320.0), (0.0, 439.3, 240.0), (0.0, 0.0, 1.0))
 
 
@@ -176,7 +212,7 @@ def eval_round(np, torch, T, cfg, device, draws, drive=None):
         ctrl = T.prepare_controller(env, est, manip, cfg["controller"], cfg, log,
                                     device=device)
         rec["param_devices"] = {p.device.type for p in est.model.parameters()} | \
-            {p.device.type for p in ctrl.policy.model.parameters()}
+            {p.device.type for p in ctrl.controller.model.parameters()}
         estimate, call = est._estimate, est._call_estimate
 
         def drawn(K, rgb1, mask1, ext1, rgb2, mask2, ext2, rand1, rand2):
@@ -387,6 +423,286 @@ def flagship_eval(np, torch, dev, card):
         f"the {n_spans} 'estimate' ranges")
     check(inside >= 1, "the profiler recorded no K1 launch inside the loop's estimates")
     return launches, err
+
+
+# ---------------------------------------------------------------- training --
+def _capture(owner, name, keep):
+    """Wrap ``owner.name`` so that each call first hands ``keep`` its
+    arguments; returns the function that undoes it."""
+    orig = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        keep(*args, **kwargs)
+        return orig(*args, **kwargs)
+    setattr(owner, name, wrapped)
+    return lambda: setattr(owner, name, orig)
+
+
+def ppo_training(np, torch, dev, card):
+    """Phase 12: PPO training of the camera scheduler through ``train.main``
+    (``train=controller``), two iterations of 16 transitions at 8 envs,
+    resumed from the committed policy, with K1's counter set to 0 just
+    before and read just after; then the last update on the card against
+    the same update on the CPU, and the saved checkpoint read back. Returns
+    K1's launches."""
+    import tempfile
+
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.algo.ppo import PPO
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+
+    runs, updates = [], []
+
+    def keep_update(self, batch):
+        updates.append((self.state_tree(), {k: v.detach().cpu().clone()
+                                            for k, v in batch.items()}))
+    undo = [_capture(PPO, "run", lambda self, *a, **k: runs.append(self)),
+            _capture(PPO, "_update", keep_update)]
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        over = PPO_TRAIN + ["device=cuda", f"controller.learn.save_dir={tmp}",
+                            f"train.save_dir={tmp}", f"train.log_dir={tmp}"]
+        k1.crop_resize_normalize.launches = 0
+        try:
+            t0 = time.perf_counter()
+            T.main(over)
+            main_s = time.perf_counter() - t0
+        finally:
+            for u in undo:
+                u()
+        launches = k1.crop_resize_normalize.launches
+        check(len(runs) == 1 and len(updates) == PPO_ITERS,
+              f"train.main ran {len(runs)} trainers and {len(updates)} updates")
+        ppo = runs[0]
+        steps = PPO_ITERS * ppo.num_transitions
+        check(ppo.device.type == "cuda" and
+              {p.device.type for p in ppo.model.parameters()} == {"cuda"},
+              "the policy did not train on the card")
+        check(launches == 2 * steps, f"K1 launched {launches} times in {steps} rollout "
+              f"steps; each step's estimate launches it twice")
+        per_it = ", ".join(f"it {h['it']}: collect {h['collect_s']:.3f} s, learn "
+                           f"{h['learn_s']:.3f} s" for h in ppo.history)
+        split = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(ppo.timer.summary().items()))
+        say("ppo", f"{card} | python -m rgbmanip_tpu_torch.train {' '.join(PPO_TRAIN)} "
+            f"device=cuda: {PPO_ITERS} iterations of {ppo.num_transitions} transitions x "
+            f"{ppo.num_envs} envs in {main_s:.1f} s incl. set-up; {per_it}; K1 launches "
+            f"{launches} ({launches / steps:.0f} per rollout step)")
+        say("ppo", f"{card} | PhaseTimer split of the {PPO_ITERS} iterations (host clock): "
+            f"{split}; metrics of the last update (loss, surrogate, value loss, entropy, "
+            f"kl): {np.array2string(ppo.history[-1]['metrics'], precision=4)}, lr "
+            f"{ppo.lr:.3g}")
+
+        # the last update again on the card and on the CPU
+        tree, batch = updates[-1]
+        pair = {}
+        for d in (dev, torch.device("cpu")):
+            p = PPO(ppo.env, ppo.cfg, seed=0, device=d)
+            p.load_tree(tree)
+            p._update({k: v.to(d) for k, v in batch.items()})
+            pair[d.type] = p
+        g, c = pair["cuda"].model.state_dict(), pair["cpu"].model.state_dict()
+        diffs = {k: (g[k].cpu() - c[k]).abs().max().item() for k in c}
+        actor = max(v for k, v in diffs.items() if not k.startswith("critic."))
+        critic = max(v for k, v in diffs.items() if k.startswith("critic."))
+        same_lrs = pair["cuda"].update_lrs == pair["cpu"].update_lrs
+        say("ppo", f"the last update on the card vs the CPU, same batch and state "
+            f"({len(pair['cpu'].update_lrs)} minibatch steps): learning rate after every "
+            f"step equal: {same_lrs}; max |param diff| actor {actor:.3g} (limit 2e-5), "
+            f"critic {critic:.3g} (limit 2e-4)")
+        check(same_lrs and actor <= 2e-5 and critic <= 2e-4,
+              "the PPO update differs between the card and the CPU")
+
+        # the saved checkpoint read back into a fresh trainer
+        it = ppo.current_learning_iteration
+        path = os.path.join(tmp, f"model_{it}.ckpt")
+        check(os.path.exists(path), f"train.main wrote no model_{it}.ckpt")
+        back = PPO(ppo.env, ppo.cfg, seed=1, device=dev)
+        back.load(path)
+        mine, theirs = ppo.state_tree(), back.state_tree()
+        from rgbmanip_tpu_torch.utils.checkpoint import flatten
+        fa, fb = flatten(mine), flatten(theirs)
+        same = sorted(fa) == sorted(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+        say("ppo", f"model_{it}.ckpt read back into a fresh trainer: parameters, Adam "
+            f"moments, step count and lr equal: {same}")
+        check(same and back.current_learning_iteration == it,
+              "the saved PPO checkpoint does not restore the trainer")
+    return launches
+
+
+def training_stages(torch, trainer, batch, step_ms):
+    """Device time per training step of the warp (K2), the point samples
+    (K3) and the pose gathers (K4), forward and backward: each replayed,
+    forward alone and forward with its backward, on the arguments one
+    training forward gave it, the features requiring a gradient as they do
+    in the step. Returns {stage: (calls, forward ms, backward ms)}."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    stages = {
+        "warp (K2)": (stereo, "homo_warp_batched", None),
+        "point samples (K3)": (stereo, "point_sample", None),
+        "pose gathers (K4)": (stereo, "flat_gather", lambda table, idx: idx.dim() == 2),
+    }
+    calls = {k: [] for k in stages}
+    fns = {k: getattr(owner, attr) for k, (owner, attr, _) in stages.items()}
+    undo = []
+    for k, (owner, attr, keep) in stages.items():
+        def rec(*args, k=k, keep=keep):
+            if keep is None or keep(*args):
+                calls[k].append(tuple(a.detach() if torch.is_tensor(a) else a
+                                      for a in args))
+        undo.append(_capture(owner, attr, rec))
+    trainer.model.train()
+    try:
+        trainer.loss(batch)
+    finally:
+        trainer.model.eval()
+        for u in undo:
+            u()
+    out = {}
+    for k, fn in fns.items():
+        check(calls[k], f"the training forward made no call to {k}")
+        args = [(a[0].clone().requires_grad_(True),) + a[1:] for a in calls[k]]
+
+        def forward():
+            with torch.no_grad():
+                for a in args:
+                    fn(*a)
+
+        def both():
+            outs = [fn(*a) for a in args]
+            torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+        fwd = sum(device_times(torch, forward, n=5).values())
+        fb = sum(device_times(torch, both, n=5).values())
+        out[k] = (len(args), fwd, max(fb - fwd, 0.0))
+    return out
+
+
+def estimator_training(np, torch, dev, card):
+    """Phase 13: the estimator's trainer through ``train_estimator.main`` at
+    the production recipe (8 envs, reuse 8, 192 px), resumed from the
+    committed head, 5 steps, with K1's counter set to 0 just before and
+    read just after; one step's device time, top kernels and K2-K4's share
+    of it, backward included; one step on the card against the CPU from the
+    same parameters and batch; the saved head loaded back. Returns K1's
+    launches."""
+    import tempfile
+
+    from rgbmanip_tpu_torch.models.pose_estimator import train_estimator as TE
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import AdaPoseEstimator
+    from rgbmanip_tpu_torch.models.pose_estimator.converter import to_jax_params
+    from rgbmanip_tpu_torch.models.pose_estimator.training import EstimatorTrainer
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.utils.checkpoint import flatten
+
+    kept = []
+    undo = _capture(EstimatorTrainer, "step", lambda self, batch: kept.append((self, batch)))
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        head = os.path.join(tmp, "head.ckpt")
+        argv = EST_TRAIN + [f"steps={EST_STEPS}", f"resume={CKPT_EST}", f"save={head}",
+                            f"log_dir={os.path.join(tmp, 'logs')}", "log_every=1",
+                            "device=cuda"]
+        k1.crop_resize_normalize.launches = 0
+        try:
+            t0 = time.perf_counter()
+            est = TE.main(argv)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+        finally:
+            undo()
+        launches = k1.crop_resize_normalize.launches
+        st = est.train_stats
+        prepared = st["counts"]["prepare"]
+        check(st["steps"] == EST_STEPS and len(kept) == EST_STEPS, "train_estimator.main "
+              f"took {st['steps']} steps")
+        check({p.device.type for p in est.model.parameters()} == {"cuda"},
+              "the estimator did not train on the card")
+        check(launches == 2 * prepared and prepared >= EST_STEPS,
+              f"K1 launched {launches} times for {prepared} prepared batches; each "
+              f"launches it twice")
+        ph, n = st["phases"], st["counts"]
+        replayed = statistics.median(st["step_seconds"][1:])
+        steady = 1.0 / (replayed + ph.get("render", 0.0) / EST_REUSE)
+        say("est-train", f"{card} | python -m rgbmanip_tpu_torch.models.pose_estimator."
+            f"train_estimator {' '.join(EST_TRAIN)} steps={EST_STEPS} resume={CKPT_EST} "
+            f"device=cuda: {st['steps']} steps in {st['seconds']:.2f} s "
+            f"({st['steps'] / st['seconds']:.2f} steps/s incl. the first step's warm-up; "
+            f"{main_s:.1f} s with set-up); render {ph.get('render', 0.0):.3f} s "
+            f"({n.get('render', 0)} fresh view pairs), prepare {ph['prepare']:.3f} s "
+            f"({prepared} batches, K1 and labels), train_step {ph['train_step']:.3f} s; "
+            f"host-to-device {st['h2d_bytes'] / 1e6:.2f} MB in all, "
+            f"{st['h2d_bytes'] / 1e6 / st['steps']:.2f} MB per step; K1 launches "
+            f"{launches} ({launches / prepared:.0f} per batch)")
+        B = 8
+        fresh_mb = n.get("render", 0) * 2 * B * H * W * (3 * 2 + 1) / 1e6  # f16 colour, mask
+        per_batch_mb = (st["h2d_bytes"] / 1e6 - fresh_mb) / prepared
+        say("est-train", f"{card} | steady state: a replayed step (steps 2-{EST_STEPS}, "
+            f"median) {replayed * 1e3:.1f} ms; with the fresh render "
+            f"({ph.get('render', 0.0):.3f} s) spread over its {EST_REUSE} uses, "
+            f"{steady:.2f} steps/s; host-to-device: {fresh_mb / max(n.get('render', 1), 1):.2f} "
+            f"MB per fresh view pair (its f16 colour and masks stay on the card for the "
+            f"replays), {per_batch_mb:.3f} MB of labels and projections per batch, "
+            f"{fresh_mb / max(n.get('render', 1), 1) / EST_REUSE + per_batch_mb:.2f} MB "
+            f"per step at reuse {EST_REUSE}")
+
+        # the saved head loaded back gives the trained estimator's estimate
+        cfg = dict(est.cfg, load=True, checkpoint_path=head)
+        back = AdaPoseEstimator(cfg, device=dev)
+        args = [torch.from_numpy(a).to(dev) for a in pair(np, np.random.default_rng(4), 8)]
+        g = torch.Generator().manual_seed(6)
+        S = est.img_size
+        u = [torch.rand(8, S * S, generator=g).to(dev) for _ in range(2)]
+        b1, v1, _ = est._estimate(*args, *u)
+        b0, _, _ = est._estimate(*args, *u)
+        b2, v2, _ = back._estimate(*args, *u)
+        diff = (b1 - b2).abs().max().item()
+        again = (b1 - b0).abs().max().item()
+        say("est-train", f"the saved head loaded back by AdaPoseEstimator: max |bbox diff| "
+            f"{diff:.3g} m from the trained estimator's on 8 view pairs (limit 1e-5; the "
+            f"trained estimator against itself, call to call: {again:.3g} m), valid flags "
+            f"equal: {torch.equal(v1, v2)} ({int(v1.sum())} valid)")
+        check(diff <= 1e-5 and torch.equal(v1, v2),
+              "the saved estimator head does not give the trained estimate")
+
+        # one step's device time, its top kernels and K2-K4's share
+        trainer, batch = kept[-1]
+        wall = host_ms(torch, lambda: trainer.step(batch), reps=5)
+        kernels = device_times(torch, lambda: trainer.step(batch), n=3)
+        busy = sum(kernels.values())
+        say("est-train", f"{card} | one training step at B={batch['img1'].shape[0]}, "
+            f"{batch['img1'].shape[1]} px (f32, TF32 off): {wall:.2f} ms wall, device busy "
+            f"{busy:.2f} ms, idle {(1 - busy / wall) * 100:.0f}% of the wall time; "
+            f"{1e3 / wall:.2f} train steps/s without the sampler")
+        for name, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+            say("est-train", f"    {v:.4f} ms ({v / busy * 100:.1f}%) {name[:90]}")
+        stages = training_stages(torch, trainer, batch, busy)
+        bwd = sum(b for _, _, b in stages.values())
+        for k, (calls, f, b) in stages.items():
+            say("est-train", f"{card} | {k}: {calls} calls per step, forward {f:.4f} ms, "
+                f"backward {b:.4f} ms ({b / busy * 100:.2f}% of the step's busy time)")
+        say("est-train", f"K2-K4 backward together: {bwd:.4f} ms, {bwd / busy * 100:.2f}% of "
+            f"a training step's device time")
+
+        # one step on the card against the CPU, same parameters and batch
+        sub = {k: v[:EST_CPU_ENVS] for k, v in batch.items()}
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            e = AdaPoseEstimator(cfg, device=d)
+            total, parts = EstimatorTrainer(e.model, lr=1e-4).step(
+                {k: v.to(d) for k, v in sub.items()})
+            out[d.type] = (parts, [flatten(t) for t in to_jax_params(e.model)])
+        part_rel = max(abs(out["cuda"][0][k] - out["cpu"][0][k]) / abs(out["cpu"][0][k])
+                       for k in out["cpu"][0])
+        (gp, gs), (cp, cs) = out["cuda"][1], out["cpu"][1]
+        stats = max(float(np.abs(gs[k] - cs[k]).max() / (np.abs(cs[k]).max() + 1e-6))
+                    for k in cs)
+        params = max(float(np.abs(gp[k] - cp[k]).max()) for k in cp)
+        say("est-train", f"one step on the card vs the CPU from the saved head on the last "
+            f"batch's first {EST_CPU_ENVS} envs: loss parts {part_rel:.3g} relative (limit "
+            f"1e-4), BatchNorm running statistics {stats:.3g} of their largest (limit "
+            f"1e-4), parameters {params:.3g} (limit 2.1e-4: Adam's first step moves each "
+            f"by +-1e-4, so an element whose gradient is near 0 may part by two steps)")
+        check(part_rel <= 1e-4 and stats <= 1e-4 and params <= 2.1e-4,
+              "the estimator's training step differs between the card and the CPU")
+
+    return launches
 
 
 # ----------------------------------------------------------------- inputs --
@@ -965,13 +1281,19 @@ def run():
     # 11. the flagship evaluation --------------------------------------------
     eval_launches, eval_err = flagship_eval(np, torch, dev, card)
 
+    # 12. PPO training of the camera scheduler ---------------------------------
+    ppo_launches = ppo_training(np, torch, dev, card)
+
+    # 13. the estimator's training ---------------------------------------------
+    est_launches = estimator_training(np, torch, dev, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
         "route": "cuda",
         "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
         "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:54",
-        "launches": eval_launches["crop_resize_normalize"],
+        "launches": eval_launches["crop_resize_normalize"] + ppo_launches + est_launches,
         "max_abs_err": max(err, eval_err),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],

@@ -7,13 +7,14 @@ are camera poses: per policy step the wrist camera plans and moves (eval) to
 the commanded viewpoint, a view is appended to the multi-view queue, the
 pose estimator runs on the last two valid views, and a 14-term shaped reward
 scores the estimate against ground truth (rl_pose.py:225-358).
-``RLPoseController`` runs the trained PPO actor (``algo/ppo.py``) on it and
-fuses the per-step estimates with ``consensus_fuse``. Training the policy is
-not ported yet (ROADMAP.md, Queue 1: 'PPO and estimator training').
+``RLPoseController`` runs the PPO actor (``algo/ppo.py``) on it and fuses
+the per-step estimates with ``consensus_fuse``, or trains the actor on it
+(``train_controller``: teleported camera moves, ``step(eval=False)``).
 
 The env's ``PhaseTimer`` records the evaluation's split: ``policy`` (the
 actor), ``estimate`` (the estimator, host-to-device copies included),
-``skill`` (the scripted manipulation) beside the env's own ``sim/*`` phases.
+``skill`` (the scripted manipulation) beside the env's own ``sim/*`` phases;
+training adds ``learn`` (GAE and the update).
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ from ..pose_estimator.groundtruth_estimator import GroundTruthPoseEstimator
 from ...envs.vec_env import CAMERA_H, CAMERA_W
 from ...utils.tools import Box
 from ...utils.transform import lookat_quat, quat_to_axis
-
-_TRAINING = "(ROADMAP.md, Queue 1: 'PPO and estimator training')"
 
 
 def consensus_fuse(pred_bbox, cur_step, cluster_tol=0.06, stereo_ok=None):
@@ -484,38 +483,37 @@ class ControlInterface:
 
 
 class RLPoseController(BaseController):
-    """The evaluation path of the reference's controller (rl_pose.py:464-516):
-    the trained actor's mean action per step, then the fused estimate to the
-    skill. The policy runs on ``device`` (the card unless the caller asks for
-    the CPU); training, ``learn`` and ``save`` are not ported yet."""
+    """(reference rl_pose.py:464-516) The camera-scheduling policy and its
+    PPO trainer (``algo/ppo.py``) on ``device`` (the card unless the caller
+    asks for the CPU): a fresh policy drawn from ``cfg.seed``, or the one in
+    ``controller.load``. ``run`` evaluates (the actor's mean action per
+    step, then the fused estimate to the skill); ``train_controller`` trains
+    on the control interface."""
 
     def __init__(self, env, pose_estimator, manipulation, ctrl_cfg, cfg, logger,
                  writer=None, device=None):
         super().__init__(env, pose_estimator, manipulation, ctrl_cfg, logger)
-        from ...algo.ppo import PPOPolicy
+        from ...algo.ppo import PPO
         iface_cfg = {"controller": ctrl_cfg, "task": cfg.get("task", {})}
         self.control_interface = ControlInterface(env, pose_estimator, manipulation,
                                                   iface_cfg)
-        if not ctrl_cfg.get("load"):
-            raise NotImplementedError(
-                f"controller=rl needs a trained policy (controller.load=<ppo_rl_*.ckpt>): "
-                f"initialising and training one is not ported yet {_TRAINING}")
-        self.policy = PPOPolicy.from_checkpoint(ctrl_cfg["load"], ctrl_cfg.get("policy"),
-                                                device=device)
+        self.controller = PPO(self.control_interface, ctrl_cfg, writer=writer,
+                              seed=cfg.get("seed", 0), device=device)
+        if ctrl_cfg.get("load"):
+            self.controller.load(ctrl_cfg["load"])
 
-    def train_controller(self, *args, **kwargs):
-        raise NotImplementedError(f"training the camera-scheduling policy {_TRAINING}")
+    def train_controller(self, steps, log_interval=1, save_interval=None):
+        self.logger.info("Training controller model...")
+        self.controller.run(steps, log_interval, save_interval)
 
-    def learn(self, *args, **kwargs):
-        raise NotImplementedError(f"training the camera-scheduling policy {_TRAINING}")
+    def learn(self, steps, *args, **kwargs):
+        return self.train_controller(steps)
 
     def save(self, path):
-        raise NotImplementedError(f"saving a policy checkpoint {_TRAINING}")
+        self.controller.save(path)
 
     def load(self, path):
-        from ...algo.ppo import PPOPolicy
-        self.policy = PPOPolicy.from_checkpoint(path, self.cfg.get("policy"),
-                                                device=self.policy.device)
+        self.controller.load(path)
 
     def run(self, eval=False):
         iface = self.control_interface
@@ -533,7 +531,7 @@ class RLPoseController(BaseController):
         while True:
             cur_step += 1
             with self.env.timer.phase("policy"):
-                actions = self.policy.act_inference(current_obs)
+                actions = self.controller.act_inference(current_obs)
             next_obs, rews, dones, infos = iface.step(actions, eval=True)
             current_obs = next_obs
             if dones.any() or cur_step >= max_step:

@@ -10,6 +10,7 @@ out-of-scene sentinel bbox (+10 offset).
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -18,10 +19,10 @@ import torch
 from ... import repo_path, resolve_device
 from ...ops import geometry as G
 from ...ops.preprocess import depth_hypotheses, prepare_model_input
-from ...utils.checkpoint import load_checkpoint
+from ...utils.checkpoint import load_checkpoint, write_msgpack
 from ...utils.logger import get_logger
 from .base_estimator import BasePoseEstimator
-from .converter import load_jax_params, load_torch_state_dict
+from .converter import load_jax_params, load_torch_state_dict, to_jax_params
 from .nets.stereo import StereoPoseNetWithDepth, flax_init_
 
 DEFAULT_BBOX = np.array([
@@ -89,7 +90,7 @@ class AdaPoseEstimator(BasePoseEstimator):
     def load(self, path: str):
         """Load a checkpoint into the network, as the JAX package's
         ``AdaPoseEstimator.load`` does:
-        - a flax msgpack checkpoint of the JAX package, its architecture
+        - a flax msgpack checkpoint of either package, its architecture
           metadata validated against this estimator's knobs;
         - a reference ``.pth`` state dict (``converter.load_torch_state_dict``),
           which carries no metadata and is restored unvalidated;
@@ -124,6 +125,15 @@ class AdaPoseEstimator(BasePoseEstimator):
                                     f"metadata; restoring unvalidated")
             load_jax_params(self.model, tree["params"], tree.get("batch_stats", {}))
         self.logger.info(f"loaded estimator checkpoint {path}")
+
+    def save(self, path: str):
+        """Write the JAX package's estimator checkpoint (``params``,
+        ``batch_stats`` and the ``_arch_meta`` JSON) through a temporary file
+        that is synced and renamed, so that the JAX package's
+        ``AdaPoseEstimator.load`` reads a head trained here."""
+        params, batch_stats = to_jax_params(self.model)
+        write_msgpack(path, {"params": params, "batch_stats": batch_stats,
+                             "meta": json.dumps(self._arch_meta())})
 
     @torch.inference_mode()
     def _estimate(self, K, rgb1, mask1, ext1, rgb2, mask2, ext2, rand1, rand2):

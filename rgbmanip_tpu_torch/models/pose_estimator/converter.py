@@ -19,6 +19,10 @@ resnet10s ``up_1`` a 1x1 conv. Layouts, flax -> torch:
   Dense        (I, O)              -> Linear (O, I)
   BatchNorm    scale/bias + batch_stats mean/var -> weight/bias/running_*
                (eps 1e-5 on both sides)
+
+``to_jax_params`` is the inverse: it turns the port's modules back into the
+flax ``params`` / ``batch_stats`` trees (the transposes undone), so that a
+head trained in the port loads into the JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +41,13 @@ FLAX_TO_TORCH = {
     "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
     "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),
     "deconv3d": lambda w: np.transpose(w, (3, 4, 0, 1, 2)),
+    "dense": lambda w: np.transpose(w),
+    "copy": lambda w: np.asarray(w),
+}
+TORCH_TO_FLAX = {
+    "conv2d": lambda w: np.transpose(w, (2, 3, 1, 0)),
+    "conv3d": lambda w: np.transpose(w, (2, 3, 4, 1, 0)),
+    "deconv3d": lambda w: np.transpose(w, (2, 3, 4, 0, 1)),
     "dense": lambda w: np.transpose(w),
     "copy": lambda w: np.asarray(w),
 }
@@ -137,6 +148,21 @@ def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> 
     with torch.no_grad():
         for k, w in new_state.items():
             state[k].copy_(w)
+
+
+def to_jax_params(model: torch.nn.Module) -> Tuple[dict, dict]:
+    """The flax (params, batch_stats) trees of ``model``, a
+    ``StereoPoseNetWithDepth``, as nested dicts of f32 numpy arrays: the
+    inverse of ``load_jax_params``, leaf for leaf."""
+    trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    state = model.state_dict()
+    for k, (coll, fp, kind) in torch_key_map(model.backend).items():
+        w = state[k].detach().cpu().numpy().astype(np.float32)
+        node = trees[coll]
+        for name in fp[:-1]:
+            node = node.setdefault(name, {})
+        node[fp[-1]] = np.ascontiguousarray(TORCH_TO_FLAX[kind](w))
+    return trees["params"], trees["batch_stats"]
 
 
 def load_torch_state_dict(model: torch.nn.Module, path: str) -> Tuple[List[str], List[str]]:

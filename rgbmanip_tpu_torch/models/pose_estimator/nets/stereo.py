@@ -9,6 +9,11 @@ the volume, a per-point NOCS head, softmax depth regression at the chosen
 points, and depth-probability-weighted volume features feeding the 6-D
 rotation / translation / size heads.
 
+``model.train()`` is the JAX module's ``train=True``: only the CostRegNet's
+BatchNorms change (``FlaxBatchNorm3d``), and the two views' ``reg`` calls of
+one forward update their running statistics twice, view 1 first. PSPNet
+has no BatchNorm.
+
 Layouts at the public functions follow the JAX package: NHWC images and
 features, (B, N, C) points, and ``homo_warp_batched`` returning
 (B, D, H, W, C). Inside, ``Conv3d`` runs NCDHW. The JAX package's banded
@@ -93,11 +98,37 @@ def homo_warp_batched(src_feat, src_proj, ref_proj, depth_values,
     return out.reshape(B, D, H, W, C)
 
 
+class FlaxBatchNorm3d(nn.BatchNorm3d):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over (B, C, D, H,
+    W). In eval mode it is ``nn.BatchNorm3d`` on the running statistics. In
+    train mode it normalises by the batch mean and the biased batch variance,
+    computed as flax computes them (``E[x^2] - E[x]^2``, clipped at 0), and
+    updates ``running = 0.9 running + 0.1 batch`` with that biased variance
+    (``nn.BatchNorm3d`` would update with the unbiased one)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2, 3, 4)
+        mean = x.mean(dims)
+        var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
+            self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+            self.num_batches_tracked += 1
+        shape = (1, -1, 1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
 class ConvBnRelu3d(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
         super().__init__()
         self.conv = nn.Conv3d(in_ch, out_ch, 3, stride, padding=1, bias=False)
-        self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
+        self.bn = FlaxBatchNorm3d(out_ch)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -111,7 +142,7 @@ class DeconvBnRelu3d(nn.Module):
         super().__init__()
         self.conv = nn.ConvTranspose3d(in_ch, out_ch, 3, 2, padding=1,
                                        output_padding=1, bias=False)
-        self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
+        self.bn = FlaxBatchNorm3d(out_ch)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))

@@ -5,12 +5,24 @@ reference train.py:45-473), with hydra-style overrides:
         pose_estimator=ground_truth manipulation=open_cabinet \\
         controller=gt_pose train=test device=cpu
 
-The port runs the ``test`` mode: evaluate ``train.total_round`` episodes and
-report the success rate and the move distance, written to ``result.json``.
+Two run modes are ported:
+- ``train=test``: evaluate ``train.total_round`` episodes and report the
+  success rate and the move distance, written to ``result.json``;
+- ``train=controller``: PPO-train the camera-scheduling policy
+  (``controller=rl``) for ``train.iterations_per_epoch`` iterations, from
+  ``controller.load`` or a fresh policy, writing ``model_<it>.ckpt`` into
+  ``controller.learn.save_dir``:
+
+    python -m rgbmanip_tpu_torch.train dataset=cabinet_train task=open_cabinet \
+        manipulation=open_cabinet controller=rl train=controller \
+        pose_estimator=adapose_cabinet_fast \
+        controller.load=checkpoints/ppo_rl_coadapt_model_165.ckpt
+
 The estimator and the policy run on ``device`` (the card by default; the
 run raises without one unless ``device=cpu`` is passed). The simulator and
 the skills run on the host. ``RGBMANIP_PROFILE=<dir>`` records a
-torch.profiler trace of the run into ``<dir>/trace.json``.
+torch.profiler trace of the run into ``<dir>/trace.json``. Either mode logs
+the env's PhaseTimer split at its end.
 """
 
 from __future__ import annotations
@@ -28,7 +40,7 @@ from .config.loader import load_config, save_config
 from .utils.logger import MetricsWriter, get_logger
 
 _CONTROLLERS = "(ROADMAP.md, Queue 1: 'the remaining controllers and run modes')"
-_TRAINING = "(ROADMAP.md, Queue 1: 'PPO and estimator training')"
+_MANIP_RL = "(ROADMAP.md, Queue 1: 'RLManipulation')"
 _TASKS = "(ROADMAP.md, Queue 1: 'the pot, mug and close tasks')"
 _REALWORLD = "(ROADMAP.md, Queue 1: 'the real-world env')"
 
@@ -59,7 +71,7 @@ def prepare_manipulation(env, manip_cfg, log):
     if name in table:
         return table[name](env, manip_cfg, log)
     if name == "rl":
-        raise NotImplementedError(f"manipulation {name!r} is not ported yet {_TRAINING}")
+        raise NotImplementedError(f"manipulation {name!r} is not ported yet {_MANIP_RL}")
     if name in ("open_pot", "pick_mug", "close_cabinet", "close_drawer"):
         raise NotImplementedError(f"manipulation {name!r} is not ported yet {_TASKS}")
     raise NotImplementedError(f"manipulation {name!r}")
@@ -124,10 +136,26 @@ def test(env, controller, cfg, log, writer=None):
             break
     log.info(f"FINAL success rate {succ / rounds * 100:.2f}%  "
              f"move distance {dist / rounds:.3f} m over {rounds} episodes")
-    phases = " ".join(f"{k}={v:.3f}s" for k, v in env.timer.summary().items())
-    log.info(f"phase timings: {phases}")
+    log_phases(env, log)
     return {"success_rate": succ / rounds * 100, "move_distance": dist / rounds,
             "rounds": rounds}
+
+
+def log_phases(env, log):
+    phases = " ".join(f"{k}={v:.3f}s" for k, v in env.timer.summary().items())
+    log.info(f"phase timings: {phases}")
+
+
+def train(env, controller, cfg, log):
+    """PPO training of the camera-scheduling controller (reference
+    train.py:396-410)."""
+    iters = cfg["train"].get("iterations_per_epoch", 600)
+    if cfg["train"].get("train_manipulation", False):
+        raise NotImplementedError(f"train.train_manipulation (RLManipulation, "
+                                  f"manipulation=rl) is not ported yet {_MANIP_RL}")
+    if cfg["train"].get("train_controller", False):
+        controller.train_controller(iters)
+    log_phases(env, log)
 
 
 def main(argv=None):
@@ -136,10 +164,9 @@ def main(argv=None):
     log = get_logger()
 
     run_name = cfg["train"]["name"]
-    if run_name in ("train", "collect", "test_baseline"):
-        todo = _TRAINING if run_name == "train" else _CONTROLLERS
-        raise NotImplementedError(f"train={run_name!r} is not ported yet {todo}")
-    if run_name != "test":
+    if run_name in ("collect", "test_baseline"):
+        raise NotImplementedError(f"train={run_name!r} is not ported yet {_CONTROLLERS}")
+    if run_name not in ("test", "train"):
         raise NotImplementedError(run_name)
     device = resolve_device(cfg.get("device"))
     if device.type == "cuda":
@@ -171,8 +198,12 @@ def main(argv=None):
                                          if device.type == "cuda" else [])
         prof = profile(activities=acts)
         prof.start()
+    result = None
     try:
-        result = test(env, controller, cfg, log, writer)
+        if run_name == "test":
+            result = test(env, controller, cfg, log, writer)
+        else:
+            train(env, controller, cfg, log)
     finally:
         if prof is not None:
             if device.type == "cuda":
@@ -182,9 +213,10 @@ def main(argv=None):
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         writer.close()
         env.close()
-    with open(os.path.join(save_dir, "result.json"), "w") as f:
-        json.dump(result, f)
-    log.info(f"wrote {os.path.join(save_dir, 'result.json')}")
+    if result is not None:
+        with open(os.path.join(save_dir, "result.json"), "w") as f:
+            json.dump(result, f)
+        log.info(f"wrote {os.path.join(save_dir, 'result.json')}")
     return result
 
 

@@ -40,6 +40,10 @@ class MetricsWriter:
         self._fh.write(json.dumps({"tag": tag, "value": float(value), "step": int(step),
                                    "t": time.time()}) + "\n")
 
+    def add_scalars(self, scalars: Dict[str, float], step: int, prefix: str = ""):
+        for k, v in scalars.items():
+            self.add_scalar(prefix + k, v, step)
+
     def close(self):
         self._fh.close()
 

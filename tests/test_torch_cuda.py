@@ -265,3 +265,138 @@ def test_k1_kernel_equals_plain_on_rendered_views(cuda):
     ref = k1.crop_resize_normalize_plain(rgb, rmin.float(), cmin.float(), inv, S)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+def ppo_pair(cuda):
+    """The committed policy with its Adam state, in a trainer on the card
+    and one on the CPU, and a seeded (16, 8) batch at its own action
+    distribution whose minibatches 2 and 4 carry old means shifted by 0.3
+    (the adaptive rate both rises and falls)."""
+    from rgbmanip_tpu_torch.algo.ppo import PPO, compute_gae
+    from rgbmanip_tpu_torch.utils.tools import Box
+
+    class Spaces:
+        num_envs = 8
+        observation_space = Box(-1.5, 1.5, shape=(60,))
+        state_space = Box(-1.5, 1.5, shape=(75,))
+        action_space = Box(-1.5, 1.5, shape=(12,))
+
+    cfg = load_group("controller", "rl")
+    pair = {}
+    for d in (cuda, torch.device("cpu")):
+        pair[d.type] = PPO(Spaces(), cfg, seed=0, device=d)
+        pair[d.type].load("checkpoints/ppo_rl_coadapt_model_165.ckpt")
+    rng = np.random.default_rng(1)
+    T, N = 16, 8
+    obs = torch.from_numpy(rng.uniform(-1, 1, (T, N, 60)).astype(np.float32))
+    states = torch.from_numpy(rng.uniform(-1, 1, (T, N, 75)).astype(np.float32))
+    with torch.no_grad():
+        mean, std, value = pair["cpu"].model(obs, states)
+        sigma = std.expand_as(mean).clone()
+        mu = mean.clone().reshape(T * N, 12)
+        mu[32:64] += 0.3
+        mu[96:128] += 0.3
+        mu = mu.reshape(T, N, 12)
+        actions = mean + std * torch.from_numpy(rng.normal(size=(T, N, 12)).astype(np.float32))
+        from rgbmanip_tpu_torch.algo.ppo import gaussian_logprob
+        logprobs = gaussian_logprob(mu, sigma, actions)
+        rewards = torch.from_numpy(rng.normal(size=(T, N)).astype(np.float32))
+        dones = torch.from_numpy((rng.random((T, N)) < 0.25).astype(np.float32))
+        returns, advs = compute_gae(rewards, dones, value, value[-1], 0.98, 0.98)
+    batch = {"obs": obs, "states": states, "actions": actions, "logprobs": logprobs,
+             "values": value, "returns": returns, "advantages": advs, "mu": mu,
+             "sigma": sigma}
+    return pair, batch
+
+
+def test_ppo_update_on_card_matches_cpu(cuda):
+    """One 8x4 update from the committed checkpoint on the same batch: the
+    learning rate after every minibatch equal, the parameters within 2e-5
+    (actor) and 2e-4 (critic, whose values near 60 carry f32 rounding into
+    its gradients) after 32 steps of up to 3e-4."""
+    pair, batch = ppo_pair(cuda)
+    metrics = {d: pair[d]._update({k: v.to(pair[d].device) for k, v in batch.items()})
+               for d in pair}
+    assert pair["cuda"].update_lrs == pair["cpu"].update_lrs
+    steps = np.diff([2e-4] + pair["cpu"].update_lrs)
+    assert (steps > 0).any() and (steps < 0).any()
+    g, c = pair["cuda"].model.state_dict(), pair["cpu"].model.state_dict()
+    for k in c:
+        tol = 2e-4 if k.startswith("critic.") else 2e-5
+        assert (g[k].cpu() - c[k]).abs().max().item() <= tol, k
+    np.testing.assert_allclose(metrics["cuda"].cpu().numpy(), metrics["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert pair["cuda"]._moments()[0] == pair["cpu"]._moments()[0] == 5280 + 32
+
+
+def estimator_batch(device, n_envs=2, seed=7):
+    """One batch of the estimator trainer's sampler at the production recipe
+    (192 px, 1024 points, 16 bins of 0.15 m), ``n_envs`` envs."""
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.models.pose_estimator.data import SimViewSampler
+    from rgbmanip_tpu_torch.train import prepare_env
+
+    cfg = load_config(["dataset=cabinet_train", "task=open_cabinet",
+                       f"task.num_envs={n_envs}", f"seed={seed}"])
+    env = prepare_env(cfg["task"], cfg["dataset"], seed=seed)
+    try:
+        sampler = SimViewSampler(env, img_size=S, n_pts=1024, seed=seed, d_min=0.1,
+                                 d_interval=0.15, n_depth=16, device=device)
+        batch = None
+        while batch is None:
+            batch = sampler.sample_batch()
+    finally:
+        env.close()
+    return batch
+
+
+def test_estimator_training_step_on_card_matches_cpu(cuda):
+    """One ``EstimatorTrainer`` step from the committed head on one sampled
+    batch: the loss parts within 1e-4 relative, the BatchNorm running
+    statistics within 1e-4, and the parameters within two learning rates
+    and rounding, 2.1e-4 (Adam's first step moves each element by +-lr; an
+    element with a gradient near 0 may go either way)."""
+    from rgbmanip_tpu_torch.models.pose_estimator.converter import to_jax_params
+    from rgbmanip_tpu_torch.models.pose_estimator.training import EstimatorTrainer
+    from rgbmanip_tpu_torch.utils.checkpoint import flatten
+
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast",
+                     {"checkpoint_path": "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"})
+    batch = estimator_batch(torch.device("cpu"))
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        est = AdaPoseEstimator(cfg, device=d)
+        total, parts = EstimatorTrainer(est.model, lr=1e-4).step(
+            {k: v.to(d) for k, v in batch.items()})
+        out[d.type] = (total, parts, [flatten(t) for t in to_jax_params(est.model)])
+    for k in out["cpu"][1]:
+        np.testing.assert_allclose(out["cuda"][1][k], out["cpu"][1][k], rtol=1e-4, err_msg=k)
+    (gp, gs), (cp, cs) = out["cuda"][2], out["cpu"][2]
+    for k in cs:
+        np.testing.assert_allclose(gs[k], cs[k], rtol=1e-4, atol=1e-5, err_msg="/".join(k))
+    assert max(float(np.abs(gp[k] - cp[k]).max()) for k in cp) <= 2.1e-4
+
+
+def test_k1_equals_plain_on_the_samplers_windows(cuda):
+    """The estimator trainer's sampler on the card: K1 launched twice per
+    batch, bit for bit against its plain version on every rendered window."""
+    from rgbmanip_tpu_torch.ops import preprocess
+
+    seen = []
+    orig = preprocess.crop_resize_normalize
+
+    def kept(rgb, rmin, cmin, inv, out_size, out_dtype=torch.float32):
+        seen.append((rgb.clone(), rmin.clone(), cmin.clone(), inv.clone(), out_size))
+        return orig(rgb, rmin, cmin, inv, out_size, out_dtype=out_dtype)
+    preprocess.crop_resize_normalize = kept
+    before = k1.crop_resize_normalize.launches
+    try:
+        batch = estimator_batch(cuda, n_envs=8)
+    finally:
+        preprocess.crop_resize_normalize = orig
+    assert k1.crop_resize_normalize.launches - before == len(seen) == 2
+    assert batch["img1"].device.type == "cuda" and batch["valid"].any()
+    for rgb, rmin, cmin, inv, size in seen:
+        out = k1.crop_resize_normalize(rgb, rmin, cmin, inv, size)
+        assert torch.equal(out, k1.crop_resize_normalize_plain(rgb, rmin, cmin, inv, size))
+    assert torch.equal(batch["img1"], k1.crop_resize_normalize(*seen[0][:4], S))

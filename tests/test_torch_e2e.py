@@ -58,7 +58,7 @@ def test_main_writes_result_json(tmp_path):
 
 
 @pytest.mark.parametrize("override, todo", [
-    ("train=controller", "PPO and estimator training"),
+    ("train=controller train.train_manipulation=true", "RLManipulation"),
     ("train=collect", "the remaining controllers and run modes"),
     ("controller=heuristic_pose", "the remaining controllers and run modes"),
     ("controller=homing", "the remaining controllers and run modes"),
@@ -66,8 +66,8 @@ def test_main_writes_result_json(tmp_path):
 ])
 def test_what_the_port_lacks_raises_naming_its_roadmap_item(override, todo, tmp_path):
     with pytest.raises(NotImplementedError, match=todo):
-        port_train.main(TASKS["open_cabinet"] + GT + [
-            override, "device=cpu", "task.num_envs=1",
+        port_train.main(TASKS["open_cabinet"] + GT + override.split() + [
+            "device=cpu", "task.num_envs=1",
             f"train.save_dir={tmp_path}", f"train.log_dir={tmp_path}"])
 
 

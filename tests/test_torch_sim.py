@@ -77,6 +77,27 @@ def test_reset_and_moves_render_the_same_frames(envs):
     assert penv.get_image()["camera0"]["Mask"].any(), "no view saw the handle"
 
 
+def test_teleported_moves_render_the_same_frames(envs):
+    """``cam_move_to(..., skip_move=True)``: the camera jumps to the target
+    without a planned path, as PPO training (``ControlInterface.step`` with
+    ``eval=False``) and the estimator's view sampler move it."""
+    jenv, penv = envs
+    jenv.reset()
+    penv.reset()
+    seen = False
+    for i, (pos, look) in enumerate(MOVES):
+        pose = np.tile(np.concatenate([pos, lookat_quat(np.asarray(look))]), (2, 1))
+        kw = dict(time=2, wait=0.5, planner="path", robot_frame=True, skip_move=True,
+                  no_collision_with_front=False)
+        ok_j = jenv.cam_move_to(pose, **kw)
+        ok_p = penv.cam_move_to(pose, **kw)
+        np.testing.assert_array_equal(np.asarray(ok_p), np.asarray(ok_j))
+        shot = snapshot(penv)
+        assert_same(shot, snapshot(jenv), f"after teleport {i + 1}")
+        seen |= bool(shot["Mask"].any())
+    assert seen, "no view saw the handle"
+
+
 def jax_csrc_listing():
     """Names and mtimes under the JAX package's ``sim/csrc``, less its own
     build product, which the JAX package's tests may be building in another
