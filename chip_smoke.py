@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # from the repo root, on a machine with a card
 
-The script drives six paths of the port. The main one is the flagship
+The script drives eight paths of the port. The main one is the flagship
 evaluation itself (``python -m rgbmanip_tpu_torch.train`` with
 ``controller=rl``, ``pose_estimator=adapose_cabinet_fast`` and
 ``checkpoints/estimator_fast_cabinet_aug_r5.ckpt``, 8 envs, seed 11; the
@@ -17,12 +17,17 @@ row-gather probe (``scripts/try_gather.py``, the one entry point of kernel
 K5) at its default shape; the third the paper-size estimator
 (``adapose_cabinet``: resnet34 at backbone stride 8, 224 px, a 112x112x24
 cost volume, 1024 points) on weights made from a seed, since its released
-weights are not in the repo. The last two are the trainers: PPO training of
-the camera scheduler (``python -m rgbmanip_tpu_torch.train controller=rl
+weights are not in the repo. Then the two trainers: PPO training of the
+camera scheduler (``python -m rgbmanip_tpu_torch.train controller=rl
 train=controller``, resumed from the committed policy) and the estimator's
 trainer (``python -m rgbmanip_tpu_torch.models.pose_estimator.train_estimator``
 at the production recipe of ``scripts/tunnel_watch_estimator.sh``, resumed
-from the committed head), both with K1 on every estimate or batch. Each path
+from the committed head), both with K1 on every estimate or batch. The last
+two are the heuristic two-view controller with AdaPose on the pot and the
+mug (the README's rows, ``scripts/r5_chain.sh``; one estimate per round,
+K1 twice) and the estimator's inference harness on view pairs that
+``train=collect`` wrote (``python -m
+rgbmanip_tpu_torch.models.pose_estimator.inference``, one batch of 8). Each path
 runs with every launch counter set to 0 just before it and read just after.
 Phases:
 
@@ -76,6 +81,20 @@ Phases:
      on the card against the CPU from the saved head (loss parts 1e-4
      relative, BatchNorm statistics 1e-4, parameters within two learning
      rates and rounding, 2.1e-4)
+ 14. heuristic + AdaPose, one round of 8 episodes on ``pot_test`` and on
+     ``mug_test`` through ``rgbmanip_tpu_torch.train``'s functions on the
+     card, each with every launch counter set to 0 just before it and read
+     just after (K1 twice per round): success rate, move distance and
+     seconds per episode (printed, not gated) and the PhaseTimer split; K1
+     bit for bit against its plain version on the round's windows; the same
+     round on the CPU with the same draws and the card's bbox for the
+     skill, gated on equal views and cameras, estimates within 1e-3 m,
+     equal success and move distance. Then ``train=collect``
+     (``collect_pose``, 8 envs) writes 8 view pairs and ``inference.main``
+     estimates them on the card in one batch of 8 (counters set to 0 just
+     before, K1 twice); the same batch on the card and on the CPU with the
+     same draws within 1e-3 m and equal valid flags; the estimate's wall
+     time, device busy time, idle share and top kernels at B=8
 
 Phase 3 also holds K1 against its plain version on a reversed window (an
 empty mask gives a window of negative side), and K5, bit-exact, at
@@ -132,6 +151,19 @@ EST_TRAIN = ["dataset=cabinet_train", "task=open_cabinet", "task.num_envs=8", "s
 EST_STEPS = 5
 EST_CPU_ENVS = 2               # envs of the card-vs-CPU training step
 K_CAM = ((439.3, 0.0, 320.0), (0.0, 439.3, 240.0), (0.0, 0.0, 1.0))
+# heuristic + AdaPose (the README's pot and mug rows, scripts/r5_chain.sh), one round
+HEURISTIC = {
+    "open_pot": ["dataset=pot_test", "task=open_pot", "manipulation=open_pot",
+                 "pose_estimator=adapose_pot_fast"],
+    "pick_mug": ["dataset=mug_test", "task=pick_mug", "manipulation=pick_mug",
+                 "pose_estimator=adapose_mug_fast"],
+}
+HEURISTIC_RUN = ["controller=heuristic_pose", "train=test", "train.total_round=8",
+                 "task.num_envs=8", "seed=11"]
+# train=collect of view pairs for the estimator's inference harness, one round
+COLLECT = ["dataset=cabinet_test", "task=open_cabinet", "controller=collect_pose",
+           "pose_estimator=ground_truth", "train=collect", "train.total_round=8",
+           "task.num_envs=8", "seed=11"]
 
 
 class SmokeError(RuntimeError):
@@ -423,6 +455,214 @@ def flagship_eval(np, torch, dev, card):
         f"the {n_spans} 'estimate' ranges")
     check(inside >= 1, "the profiler recorded no K1 launch inside the loop's estimates")
     return launches, err
+
+
+# ------------------------------------------ heuristic + AdaPose, inference --
+def heuristic_round(np, torch, T, cfg, device, draws, drive=None):
+    """One round of heuristic + AdaPose through ``rgbmanip_tpu_torch.train``'s
+    functions on ``device``: the camera at the two fixed viewpoints, one
+    estimate of the whole batch, the skill. The estimate takes its
+    point-sampling draws from ``draws`` (made on the CPU from one seed on the
+    first run, replayed on the second); with ``drive`` (the first run's
+    record) the skill acts on the first run's bbox, since the closed-loop
+    skill turns micrometres into centimetres of arm motion."""
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+    log = get_logger()
+    rec = {"calls": [], "bbox": [], "devices": set()}
+    gen = torch.Generator().manual_seed(EVAL_DRAW_SEED)
+    env = T.prepare_env(cfg["task"], cfg["dataset"], log=log, seed=cfg["seed"])
+    try:
+        manip = T.prepare_manipulation(env, cfg["manipulation"], log)
+        est = T.prepare_pose_estimator(env, cfg["pose_estimator"], log, device)
+        ctrl = T.prepare_controller(env, est, manip, cfg["controller"], cfg, log,
+                                    device=device)
+        rec["param_devices"] = {p.device.type for p in est.model.parameters()}
+        estimate, inner = est.estimate, est._estimate
+
+        def drawn(*args):
+            i = len(rec["calls"])
+            if i == len(draws):
+                n = est.img_size ** 2
+                draws.append([torch.rand(args[1].shape[0], n, generator=gen)
+                              for _ in range(2)])
+            rec["devices"] |= {a.device.type for a in args[:7]}
+            return inner(*args[:7], *(u.to(args[1].device) for u in draws[i]))
+
+        def recorded(*args):
+            bbox = np.asarray(estimate(*args))
+            rec["calls"].append(args)      # numpy arrays made anew for each call
+            rec["bbox"].append(bbox)
+            return drive["bbox"][len(rec["bbox"]) - 1] if drive is not None else bbox
+
+        est._estimate, est.estimate = drawn, recorded
+        t0 = time.perf_counter()
+        rec["result"] = T.test(env, ctrl, cfg, log)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["phases"] = env.timer.summary()
+        obs = env.get_observation()
+        rec["success"] = np.array(obs["success"])
+        rec["move"] = np.array(obs["total_move_distance"])
+    finally:
+        env.close()
+    return rec
+
+
+def heuristic_eval(np, torch, dev, card):
+    """Phase 14: heuristic + AdaPose, one round of 8 on ``pot_test`` and on
+    ``mug_test`` on the card, with every launch counter set to 0 just before
+    each round and read just after; K1 against its plain version on the
+    round's windows; the same round on the CPU, lock-step. Returns K1's
+    launches in the card rounds and the largest |kernel - plain|."""
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    total, err = 0, 0.0
+    for task, stack in HEURISTIC.items():
+        cfg = load_config(stack + HEURISTIC_RUN + ["device=cuda"])
+        S = int(cfg["pose_estimator"]["img_size"])
+        N = int(cfg["task"]["num_envs"])
+        draws = []
+        k1.crop_resize_normalize.launches = 0
+        k5.row_gather.launches = 0
+        card_rec = heuristic_round(np, torch, T, cfg, dev, draws)
+        launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                    "row_gather": k5.row_gather.launches}
+        n_est = len(card_rec["calls"])
+        check(n_est == 1 and launches["crop_resize_normalize"] == 2 * n_est,
+              f"{task}: K1 launched {launches['crop_resize_normalize']} times in "
+              f"{n_est} estimates of the round; the path launches it twice per estimate")
+        check(card_rec["param_devices"] == {"cuda"} and card_rec["devices"] == {"cuda"},
+              f"{task}: the estimator is not on the card: parameters on "
+              f"{card_rec['param_devices']}, estimate inputs on {card_rec['devices']}")
+        total += launches["crop_resize_normalize"]
+        res, secs = card_rec["result"], card_rec["seconds"]
+        say("heuristic", f"{card} | {task} heuristic + AdaPose on the card "
+            f"({cfg['pose_estimator']['checkpoint_path']}, {N} envs, seed 11): success "
+            f"{res['success_rate']:.2f}% (not gated: {res['rounds']} episodes), move "
+            f"distance {res['move_distance']:.3f} m; {secs:.2f} s for the round, "
+            f"{secs / res['rounds']:.3f} s/episode incl. the estimator's first call on "
+            f"this instance; launches {launches} (2 per round)")
+        split = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(card_rec["phases"].items()))
+        say("heuristic", f"{card} | {task} PhaseTimer split of the round (host clock; "
+            f"skill includes its own sim moves): {split}")
+        a = card_rec["calls"][0]
+        for rgb, mask in ((a[1], a[2]), (a[4], a[5])):
+            rgb_t = torch.as_tensor(rgb, device=dev)
+            win = k1_windows(torch, torch.as_tensor(mask, device=dev), S)
+            out = k1.crop_resize_normalize(rgb_t, *win, S)
+            ref = k1.crop_resize_normalize_plain(rgb_t, *win, S)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"{task}: K1 differs from its plain version "
+                  f"on a window of the round")
+            err = max(err, (out - ref).abs().max().item())
+
+        t0 = time.perf_counter()
+        cpu_rec = heuristic_round(np, torch, T, load_config(stack + HEURISTIC_RUN +
+                                                             ["device=cpu"]),
+                                  torch.device("cpu"), draws, drive=card_rec)
+        check(len(cpu_rec["calls"]) == n_est, f"{task}: the CPU round made another "
+              f"number of estimates")
+        for x, y in zip(cpu_rec["calls"][0], card_rec["calls"][0]):
+            check(np.array_equal(x, y), f"{task}: the views or cameras differ between "
+                  f"the card and the CPU rounds")
+        bdiff = float(np.abs(cpu_rec["bbox"][0] - card_rec["bbox"][0]).max())
+        n_valid = int((np.abs(card_rec["bbox"][0]).max(axis=(1, 2)) < 8.0).sum())
+        same = (np.array_equal(cpu_rec["success"], card_rec["success"])
+                and np.array_equal(cpu_rec["move"], card_rec["move"]))
+        say("heuristic", f"{task} card vs CPU, same draws, the CPU's skill on the card's "
+            f"bbox ({time.perf_counter() - t0:.1f} s for the CPU round): both views and "
+            f"cameras equal bit for bit; max |bbox diff| {bdiff:.3g} m (limit 1e-3) over "
+            f"{N} envs, {n_valid} valid; K1 equals its plain version bit for bit on the "
+            f"round's {2 * N} windows; success and move distance equal: {same}")
+        check(bdiff <= 1e-3, f"{task}: card and CPU estimates differ")
+        check(n_valid > 0, f"{task}: no valid estimate: the comparison would be of "
+              f"sentinel boxes")
+        check(same, f"{task}: card and CPU rounds end differently")
+    return total, err
+
+
+def inference_batch(np, torch, dev, card):
+    """Phase 14: ``train=collect`` writes 8 view pairs (``collect_pose``),
+    then ``inference.main`` on the card estimates them at B=8 with every
+    launch counter set to 0 just before it and read just after; the same
+    batch on the card and on the CPU with the same draws; the estimate's
+    wall time, device busy time and idle share at B=8. Returns K1's
+    launches in ``inference.main``."""
+    import tempfile
+
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.models.pose_estimator import inference
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import AdaPoseEstimator
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        data = os.path.join(tmp, "pairs")
+        t0 = time.perf_counter()
+        T.main(COLLECT + ["device=cuda", f"controller.learn.save_dir={data}",
+                          f"train.save_dir={tmp}", f"train.log_dir={tmp}"])
+        files = inference.pair_files(data)
+        check(len(files) == B_MAIN, f"train=collect wrote {len(files)} view pairs, "
+              f"not {B_MAIN}")
+        say("inference", f"train=collect (collect_pose, {B_MAIN} envs) wrote "
+            f"{len(files)} view pairs in {time.perf_counter() - t0:.1f} s")
+        k1.crop_resize_normalize.launches = 0
+        k5.row_gather.launches = 0
+        t0 = time.perf_counter()
+        result = inference.main(["--data_root", data])          # the card by default
+        main_s = time.perf_counter() - t0
+        launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                    "row_gather": k5.row_gather.launches}
+        check(result["n"] == B_MAIN and launches["crop_resize_normalize"] == 2,
+              f"inference.main estimated {result['n']} pairs with {launches}; one batch "
+              f"of {B_MAIN} launches K1 twice")
+        say("inference", f"python -m rgbmanip_tpu_torch.models.pose_estimator.inference "
+            f"--data_root <pairs> (the card by default; the estimator's default "
+            f"architecture: resnet34 at stride 8, 224 px, volume scale 1, bilinear warp, "
+            f"1024 points, weights made from seed 0): {result} in {main_s:.1f} s incl. "
+            f"set-up; launches {launches} (2 per batch)")
+        args = inference.stack_pairs([np.load(f) for f in files])
+
+    cfg = inference.estimator_cfg()
+    S = cfg["img_size"]
+    g = torch.Generator().manual_seed(8)
+    u = [torch.rand(B_MAIN, S * S, generator=g) for _ in range(2)]
+    outs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        est = AdaPoseEstimator(cfg, device=d)
+        t = [torch.from_numpy(a).to(d) for a in args]
+        bbox, valid, _ = est._estimate(*[x if x.dtype == torch.bool else x.float()
+                                         for x in t], *(x.to(d) for x in u))
+        outs[name] = (bbox.cpu().numpy(), valid.cpu().numpy())
+        if name == "card":
+            card_est = est
+    bdiff = float(np.abs(outs["card"][0] - outs["cpu"][0]).max())
+    vsame = bool((outs["card"][1] == outs["cpu"][1]).all())
+    say("inference", f"B={B_MAIN} collected pairs, same draws and seeded weights, card vs "
+        f"CPU: max |bbox diff| {bdiff:.3g} m (limit 1e-3), valid flags equal: {vsame} "
+        f"({int(outs['cpu'][1].sum())}/{B_MAIN} valid)")
+    check(bdiff <= 1e-3 and vsame, "card and CPU inference estimates disagree")
+    check(outs["cpu"][1].any(), "no valid inference estimate: the comparison would be "
+          "of sentinel boxes")
+
+    def estimate():
+        card_est.estimate(*args)       # numpy in and out, as inference.main calls it
+    wall = host_ms(torch, estimate, reps=7)
+    kernels = device_times(torch, estimate, n=5)
+    busy = sum(kernels.values())
+    mb = sum(a.nbytes for a in args) / 1e6
+    say("time", f"{card} | inference estimate B={B_MAIN} on collected pairs (numpy in, "
+        f"{mb:.1f} MB copied per batch): {wall:.2f} ms wall, {B_MAIN / wall * 1e3:.0f} "
+        f"pairs/s; device busy {busy:.2f} ms per estimate, idle "
+        f"{(1 - busy / wall) * 100:.0f}% of the wall time")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])
+    for name, v in top[:6]:
+        say("time", f"    {v:.4f} ms ({v / busy * 100:.1f}%) {name[:90]}")
+    return launches["crop_resize_normalize"]
 
 
 # ---------------------------------------------------------------- training --
@@ -1287,14 +1527,19 @@ def run():
     # 13. the estimator's training ---------------------------------------------
     est_launches = estimator_training(np, torch, dev, card)
 
+    # 14. heuristic + AdaPose on pot and mug; collect -> inference -------------
+    heur_launches, heur_err = heuristic_eval(np, torch, dev, card)
+    inf_launches = inference_batch(np, torch, dev, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
         "route": "cuda",
         "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
-        "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:54",
-        "launches": eval_launches["crop_resize_normalize"] + ppo_launches + est_launches,
-        "max_abs_err": max(err, eval_err),
+        "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
+        "launches": (eval_launches["crop_resize_normalize"] + ppo_launches + est_launches
+                     + heur_launches + inf_launches),
+        "max_abs_err": max(err, eval_err, heur_err),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
         "bound_ms": bound,

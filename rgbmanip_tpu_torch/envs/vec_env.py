@@ -8,11 +8,11 @@ lives in the shared C++ pool, every motion command executes entire
 trajectories native-side in parallel, and observations arrive as stacked
 numpy arrays without any pipe serialization. Per-env semantics (randomized
 scene generation, rewards, success, gt bboxes) mirror
-``env/sapien_envs/base_manipulation.py`` + ``open_cabinet.py``.
+``env/sapien_envs/base_manipulation.py`` + ``open_cabinet.py`` + ``open_pot.py``.
 
-This is the port's copy of ``rgbmanip_tpu/envs/vec_env.py`` with the cabinet
-and drawer envs; the pot, mug and close envs, and the URDF fixture
-datasets, are not ported yet (ROADMAP.md, Queue 1).
+This is the port's copy of ``rgbmanip_tpu/envs/vec_env.py`` with every task
+env (cabinet and drawer, pot and mug, and the close variants); the URDF
+fixture datasets are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -535,3 +535,47 @@ class OpenCabinetEnv(VecManipulationEnv):
         h_z = quat_to_axis(handle[:, 3:], 2)
         dir_reward = ((eff_x * h_z).sum(-1) + (eff_z * -h_x).sum(-1)) * 0.1
         return near + dir_reward + open_reward * (dist < 0.1)
+
+class OpenPotEnv(VecManipulationEnv):
+    """Pot/mug tasks (reference env/sapien_envs/open_pot.py): flat +0.3
+    placement offsets, whole lid/mug graspable, no direction reward term."""
+
+    def _placement_offsets(self, meta):
+        return 0.3, 0.3
+
+    def get_success(self):
+        return (self.obj_dof()[:, 0] > self.obj_success_dof[0])
+
+    def get_observation(self, gt=False):
+        obs = super().get_observation()
+        if gt:
+            obs["handle_bbox"] = self.handle_bbox().astype(np.float32)
+        obs["success"] = self.get_success().astype(np.float32)
+        obs["object_dof"] = self.obj_dof().astype(np.float32)
+        return obs
+
+    def get_reward(self, actions):
+        open_reward = self.obj_dof()[:, 0]
+        grip = self.gripper_pose()
+        bbox = self.handle_bbox()
+        handle_p = (bbox[:, 0] + bbox[:, 6]) / 2
+        dist = np.linalg.norm(grip[:, :3] - handle_p, axis=-1)
+        near = 1.0 / (1.0 + dist ** 2) + (dist < 0.1)
+        return near + open_reward * (dist < 0.1)
+
+
+class CloseCabinetEnv(OpenCabinetEnv):
+    """Close variants: success when the dof drops below the threshold and
+    reward uses -dof (reference env/sapien_envs/close_cabinet.py:23-80)."""
+
+    def get_success(self):
+        return (self.obj_dof()[:, 0] < self.obj_success_dof[0])
+
+    def get_reward(self, actions):
+        close_reward = -self.obj_dof()[:, 0]
+        grip = self.gripper_pose()
+        bbox = self.handle_bbox()
+        handle_p = (bbox[:, 0] + bbox[:, 6]) / 2
+        dist = np.linalg.norm(grip[:, :3] - handle_p, axis=-1)
+        near = 1.0 / (1.0 + dist ** 2) + (dist < 0.1)
+        return near + close_reward * (dist < 0.1)

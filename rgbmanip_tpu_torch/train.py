@@ -1,11 +1,15 @@
 """Experiment driver of the port (counterpart of ``rgbmanip_tpu/train.py``;
-reference train.py:45-473), with hydra-style overrides:
+reference train.py:45-473), with hydra-style overrides. With no override it
+runs the default stack of ``config.yaml``: the heuristic two-view controller
+on the ground-truth estimator, ``open_cabinet``, ``train=test``:
 
     python -m rgbmanip_tpu_torch.train dataset=cabinet_train task=open_cabinet \\
         pose_estimator=ground_truth manipulation=open_cabinet \\
-        controller=gt_pose train=test device=cpu
+        controller=heuristic_pose train=test device=cpu
 
-Two run modes are ported:
+Every task runs: ``open_cabinet``/``open_drawer`` (and their ``_45``,
+``_30`` and ``_no_dr`` variants), ``open_pot``, ``pick_mug``,
+``close_cabinet`` and ``close_drawer``. Four run modes:
 - ``train=test``: evaluate ``train.total_round`` episodes and report the
   success rate and the move distance, written to ``result.json``;
 - ``train=controller``: PPO-train the camera-scheduling policy
@@ -18,10 +22,18 @@ Two run modes are ported:
         pose_estimator=adapose_cabinet_fast \
         controller.load=checkpoints/ppo_rl_coadapt_model_165.ckpt
 
+- ``train=collect``: write offline view pairs (``controller=collect_pose``,
+  for the estimator's ``inference``) or point clouds with their position
+  maps (``controller=collect_baselines``, for the baselines) into
+  ``controller.learn.save_dir``;
+- ``train=test_baseline``: replay the offline actions of
+  ``train.action_path`` against the settings under
+  ``train.task_setting_root`` (``controller=baseline``).
+
 The estimator and the policy run on ``device`` (the card by default; the
 run raises without one unless ``device=cpu`` is passed). The simulator and
 the skills run on the host. ``RGBMANIP_PROFILE=<dir>`` records a
-torch.profiler trace of the run into ``<dir>/trace.json``. Either mode logs
+torch.profiler trace of the run into ``<dir>/trace.json``. Each mode logs
 the env's PhaseTimer split at its end.
 """
 
@@ -29,6 +41,8 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
+import re
 import sys
 import time
 
@@ -36,45 +50,53 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .config.loader import load_config, save_config
+from .config.loader import ConfigError, load_config, save_config
 from .utils.logger import MetricsWriter, get_logger
 
-_CONTROLLERS = "(ROADMAP.md, Queue 1: 'the remaining controllers and run modes')"
 _MANIP_RL = "(ROADMAP.md, Queue 1: 'RLManipulation')"
-_TASKS = "(ROADMAP.md, Queue 1: 'the pot, mug and close tasks')"
 _REALWORLD = "(ROADMAP.md, Queue 1: 'the real-world env')"
 
 
 def prepare_env(task_cfg, data_cfg, headless=True, viewerless=False, log=None, seed=0):
     """Construct the batched task env (reference train.py:45-149)."""
-    from .envs.vec_env import OpenCabinetEnv
+    from .envs.vec_env import CloseCabinetEnv, OpenCabinetEnv, OpenPotEnv
 
     name = task_cfg["name"]
+    kw = dict(headless=headless, viewerless=viewerless, logger=log, seed=seed)
     if name in ("open_cabinet", "open_drawer", "open_cabinet_visualize"):
-        return OpenCabinetEnv(data_cfg, task_cfg, headless=headless,
-                              viewerless=viewerless, logger=log, seed=seed)
-    if name in ("open_pot", "pick_mug", "close_cabinet", "close_drawer"):
-        raise NotImplementedError(f"task {name!r} is not ported yet {_TASKS}")
+        return OpenCabinetEnv(data_cfg, task_cfg, **kw)
+    if name in ("open_pot", "pick_mug"):
+        return OpenPotEnv(data_cfg, task_cfg, **kw)
+    if name in ("close_cabinet", "close_drawer"):
+        return CloseCabinetEnv(data_cfg, task_cfg, **kw)
     if name == "real_world":
         raise NotImplementedError(f"task {name!r} is not ported yet {_REALWORLD}")
     raise NotImplementedError(f"task {name!r}")
 
 
-def prepare_manipulation(env, manip_cfg, log):
+def prepare_manipulation(env, manip_cfg, log, train_cfg=None):
     """(reference train.py:151-178)"""
+    from .models.manipulation.close_cabinet import (
+        CloseCabinetManipulation, CloseDrawerManipulation)
     from .models.manipulation.open_cabinet import OpenCabinetManipulation
     from .models.manipulation.open_drawer import OpenDrawerManipulation
+    from .models.manipulation.open_pot import OpenPotManipulation
+    from .models.manipulation.pick_mug import PickMugManipulation
 
+    table = {
+        "open_cabinet": OpenCabinetManipulation,
+        "open_drawer": OpenDrawerManipulation,
+        "open_pot": OpenPotManipulation,
+        "pick_mug": PickMugManipulation,
+        "close_cabinet": CloseCabinetManipulation,
+        "close_drawer": CloseDrawerManipulation,
+    }
     name = manip_cfg["name"]
-    table = {"open_cabinet": OpenCabinetManipulation,
-             "open_drawer": OpenDrawerManipulation}
-    if name in table:
-        return table[name](env, manip_cfg, log)
     if name == "rl":
         raise NotImplementedError(f"manipulation {name!r} is not ported yet {_MANIP_RL}")
-    if name in ("open_pot", "pick_mug", "close_cabinet", "close_drawer"):
-        raise NotImplementedError(f"manipulation {name!r} is not ported yet {_TASKS}")
-    raise NotImplementedError(f"manipulation {name!r}")
+    if name not in table:
+        raise NotImplementedError(f"manipulation {name!r}")
+    return table[name](env, manip_cfg, log)
 
 
 def prepare_pose_estimator(env, pe_cfg, log, device=None):
@@ -100,6 +122,9 @@ def prepare_controller(env, pose_estimator, manipulation, ctrl_cfg, cfg, log,
         manipulation.privileged_ok = isinstance(pose_estimator,
                                                 GroundTruthPoseEstimator)
     name = ctrl_cfg["name"]
+    if name == "heuristic_pose":
+        from .models.controller.heuristic_pose import HeuristicPoseController
+        return HeuristicPoseController(env, pose_estimator, manipulation, ctrl_cfg, log)
     if name == "gt_pose":
         from .models.controller.gt_pose import GtPoseController
         return GtPoseController(env, pose_estimator, manipulation, ctrl_cfg, log)
@@ -107,8 +132,15 @@ def prepare_controller(env, pose_estimator, manipulation, ctrl_cfg, cfg, log,
         from .models.controller.rl_pose import RLPoseController
         return RLPoseController(env, pose_estimator, manipulation, ctrl_cfg, cfg, log,
                                 writer=writer, device=device)
-    if name in ("heuristic_pose", "collection", "homing", "baseline"):
-        raise NotImplementedError(f"controller {name!r} is not ported yet {_CONTROLLERS}")
+    if name == "collection":
+        from .models.controller.collection import CollectionController
+        return CollectionController(env, pose_estimator, manipulation, ctrl_cfg, log)
+    if name == "homing":
+        from .models.controller.homing import HomingController
+        return HomingController(env, pose_estimator, manipulation, ctrl_cfg, log)
+    if name == "baseline":
+        from .models.controller.baseline import BaselineController
+        return BaselineController(env, pose_estimator, manipulation, ctrl_cfg, log)
     raise NotImplementedError(f"controller {name!r}")
 
 
@@ -146,6 +178,17 @@ def log_phases(env, log):
     log.info(f"phase timings: {phases}")
 
 
+def collect(env, controller, cfg, log):
+    """(reference train.py:384-394)"""
+    total_round = cfg["train"]["total_round"]
+    n = env.num_envs
+    for rnd in range(int(np.ceil(total_round / n))):
+        env.reset()
+        controller.run(eval=False)
+        log.info(f"collect round {rnd + 1}")
+    log_phases(env, log)
+
+
 def train(env, controller, cfg, log):
     """PPO training of the camera-scheduling controller (reference
     train.py:396-410)."""
@@ -158,15 +201,148 @@ def train(env, controller, cfg, log):
     log_phases(env, log)
 
 
+def _baseline_position_map(root, key):
+    """Per-setting Position map (H, W, 3) for pixel-coordinate actions.
+
+    The reference stores it inside the setting pickle
+    (``observation.pic.camera0.Position``, train.py:318-320); our collection
+    controller writes it to a sibling ``<key>.npz`` (collection.py).
+    """
+    npz_path = os.path.join(root, key + ".npz")
+    if os.path.exists(npz_path):
+        data = np.load(npz_path)
+        if "position" in data:
+            return data["position"]
+    return None
+
+
+def _floats(tokens):
+    out = []
+    for t in tokens:
+        t = t.strip().strip("[](),")
+        if not t:
+            continue
+        try:
+            out.append(float(t))
+        except ValueError:
+            continue  # format junk between the numeric fields (scores, tags)
+    return out
+
+
+def parse_baseline_actions(action_path, settings, position_of=None):
+    """Parse an offline baseline action file into [(key, action6), ...].
+
+    Handles the reference's four formats (train.py:307-365):
+      1. plain whitespace: ``key x y z dx dy dz``
+      2. comma 3-D point:  ``name, [px, py, pz], [dx dy dz]``
+      3. comma pixel:      ``name, [cx, cy], [dx, dy, dz]`` — the point is
+         recovered from the setting's stored Position map at (cx, cy)
+      4. Where2Act report (``_w2a_report`` in the filename):
+         ``name (cx, cy) ... [xd xd xd] [yd yd yd]`` — pixel point + the x
+         direction vector
+    position_of(key) -> (H, W, 3) array or None supplies the Position maps.
+    """
+    is_w2a = "_w2a_report" in os.path.basename(action_path)
+    actions = []
+    with open(action_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if is_w2a:
+                toks = line.split()
+                key = toks[0]
+                key = key[:-7] if key.endswith(".pickle") else key
+                key = key[:-4] if key.endswith(".pkl") else key
+                cx, cy = int(float(toks[1].strip("(),"))), \
+                    int(float(toks[2].strip("(),")))
+                # direction = the x vector, the FIRST bracketed group (any
+                # score field between the pixel and the brackets is skipped,
+                # reference train.py:326-331)
+                groups = re.findall(r"\[([^\]]*)\]", line)
+                if not groups:
+                    continue
+                nums = _floats(groups[0].split())
+                if len(nums) < 3:
+                    continue
+                direction = np.asarray(nums[:3])
+                pos = position_of(key) if position_of else None
+                if pos is None:
+                    continue
+                point = np.asarray(pos[cx][cy][:3], np.float64)
+            elif "," in line:
+                block = [b.strip() for b in line.split(",")]
+                key = block[0]
+                key = key[:-7] if key.endswith(".pickle") else key
+                key = key[:-4] if key.endswith(".pkl") else key
+                nums = _floats(" ".join(block[1:]).replace(
+                    "[", " ").replace("]", " ").split())
+                if len(nums) >= 6:          # [px, py, pz], [dx, dy, dz]
+                    point = np.asarray(nums[:3])
+                    direction = np.asarray(nums[3:6])
+                elif len(nums) == 5:        # [cx, cy], [dx, dy, dz]
+                    cx, cy = int(nums[0]), int(nums[1])
+                    direction = np.asarray(nums[2:5])
+                    pos = position_of(key) if position_of else None
+                    if pos is None:
+                        continue
+                    point = np.asarray(pos[cx][cy][:3], np.float64)
+                else:
+                    continue
+            else:
+                parts = line.split()
+                key = parts[0]
+                nums = _floats(parts[1:])
+                if len(nums) < 6:
+                    continue
+                point, direction = np.asarray(nums[:3]), np.asarray(nums[3:6])
+            if key not in settings:
+                continue
+            actions.append((key, np.concatenate([point, direction])))
+    return actions
+
+
+def test_baseline(env, controller, cfg, log):
+    """Replay offline baseline actions against saved task settings
+    (reference train.py:287-382)."""
+    root = cfg["train"]["task_setting_root"]
+    action_path = cfg["train"]["action_path"]
+    if not root or not action_path:
+        raise ConfigError("test_baseline needs train.task_setting_root and train.action_path")
+    settings = {}
+    for fname in sorted(os.listdir(root)):
+        if fname.endswith((".pkl", ".pickle")):
+            with open(os.path.join(root, fname), "rb") as f:
+                settings[os.path.splitext(fname)[0]] = pickle.load(f)
+
+    def position_of(key):
+        s = settings.get(key)
+        if isinstance(s, dict):        # reference layout: in-pickle map
+            try:
+                return s["observation"]["pic"]["camera0"]["Position"]
+            except (KeyError, TypeError):
+                pass
+        return _baseline_position_map(root, key)
+
+    succ, rounds = 0.0, 0
+    for key, action in parse_baseline_actions(action_path, settings, position_of):
+        controller.run(settings[key], action)
+        obs = env.get_observation()
+        succ += float(obs["success"].sum())
+        rounds += env.num_envs
+        log.info(f"baseline {key}: success {succ / rounds * 100:.2f}%")
+    log.info(f"BASELINE success rate {succ / max(rounds, 1) * 100:.2f}%")
+    log_phases(env, log)
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = load_config(argv)
     log = get_logger()
 
     run_name = cfg["train"]["name"]
-    if run_name in ("collect", "test_baseline"):
-        raise NotImplementedError(f"train={run_name!r} is not ported yet {_CONTROLLERS}")
-    if run_name not in ("test", "train"):
+    modes = {"collect": collect, "train": train, "test_baseline": test_baseline}
+    if run_name != "test" and run_name not in modes:
         raise NotImplementedError(run_name)
     device = resolve_device(cfg.get("device"))
     if device.type == "cuda":
@@ -184,7 +360,7 @@ def main(argv=None):
 
     env = prepare_env(cfg["task"], cfg["dataset"], cfg.get("headless", True),
                       cfg.get("viewerless", False), log, seed=cfg.get("seed", 0))
-    manipulation = prepare_manipulation(env, cfg["manipulation"], log)
+    manipulation = prepare_manipulation(env, cfg["manipulation"], log, cfg["train"])
     pose_estimator = prepare_pose_estimator(env, cfg["pose_estimator"], log, device)
     controller = prepare_controller(env, pose_estimator, manipulation,
                                     cfg["controller"], cfg, log, writer=writer,
@@ -203,7 +379,7 @@ def main(argv=None):
         if run_name == "test":
             result = test(env, controller, cfg, log, writer)
         else:
-            train(env, controller, cfg, log)
+            modes[run_name](env, controller, cfg, log)
     finally:
         if prof is not None:
             if device.type == "cuda":

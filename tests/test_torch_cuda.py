@@ -400,3 +400,143 @@ def test_k1_equals_plain_on_the_samplers_windows(cuda):
         out = k1.crop_resize_normalize(rgb, rmin, cmin, inv, size)
         assert torch.equal(out, k1.crop_resize_normalize_plain(rgb, rmin, cmin, inv, size))
     assert torch.equal(batch["img1"], k1.crop_resize_normalize(*seen[0][:4], S))
+
+
+HEURISTIC_POT = ["dataset=pot_test", "task=open_pot", "manipulation=open_pot",
+                 "pose_estimator=adapose_pot_fast", "controller=heuristic_pose",
+                 "train=test", "task.num_envs=2", "train.total_round=2", "seed=11"]
+
+
+def heuristic_round(device, draws, drive=None):
+    """One round of heuristic + AdaPose on the pot through ``train``'s
+    functions on ``device``. Each estimate takes its point-sampling draws
+    from ``draws`` (made on the CPU on the first run, replayed on the
+    second); with ``drive`` (the first run's record) the skill acts on the
+    first run's bbox."""
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+
+    cfg = load_config(HEURISTIC_POT + [f"device={device.type}"])
+    log = get_logger()
+    gen = torch.Generator().manual_seed(3)
+    rec = {"calls": []}
+    env = T.prepare_env(cfg["task"], cfg["dataset"], log=log, seed=cfg["seed"])
+    try:
+        manip = T.prepare_manipulation(env, cfg["manipulation"], log)
+        est = T.prepare_pose_estimator(env, cfg["pose_estimator"], log, device)
+        ctrl = T.prepare_controller(env, est, manip, cfg["controller"], cfg, log,
+                                    device=device)
+        estimate, inner = est.estimate, est._estimate
+
+        def drawn(*args):
+            i = len(rec["calls"])
+            if i == len(draws):
+                n = est.img_size ** 2
+                draws.append([torch.rand(args[1].shape[0], n, generator=gen)
+                              for _ in range(2)])
+            return inner(*args[:7], *(u.to(args[1].device) for u in draws[i]))
+
+        def recorded(*args):
+            bbox = estimate(*args)
+            rec["calls"].append(([np.array(a) for a in args], bbox))
+            return drive["calls"][len(rec["calls"]) - 1][1] if drive else bbox
+        est._estimate, est.estimate = drawn, recorded
+        before = k1.crop_resize_normalize.launches
+        rec["result"] = T.test(env, ctrl, cfg, log)
+        rec["launches"] = k1.crop_resize_normalize.launches - before
+    finally:
+        env.close()
+    return rec
+
+
+def test_heuristic_pot_round_on_card_matches_cpu(cuda):
+    """The same views bit for bit (fixed viewpoints, the host simulator),
+    K1 twice per estimate on the card, the estimate within 1e-3 m of the
+    CPU's (f32, TF32 off; cuDNN and the CPU sum in another order), and the
+    same success and move distance with both skills on the card's bbox."""
+    draws = []
+    card = heuristic_round(cuda, draws)
+    cpu = heuristic_round(torch.device("cpu"), draws, drive=card)
+    assert len(card["calls"]) == len(cpu["calls"]) == 1
+    assert card["launches"] == 2 and cpu["launches"] == 0
+    (args, bbox), (ref_args, ref_bbox) = card["calls"][0], cpu["calls"][0]
+    for a, b in zip(args, ref_args):
+        np.testing.assert_array_equal(a, b)
+    assert (np.abs(ref_bbox).max(axis=(1, 2)) < 8.0).all(), "a sentinel estimate"
+    np.testing.assert_allclose(bbox, ref_bbox, rtol=0, atol=1e-3)
+    assert card["result"] == cpu["result"]
+
+
+def test_inference_batch_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``inference.main`` at its defaults (the estimator's default
+    architecture on weights made from its seed) over pairs that ``train=collect`` wrote, on
+    the card and on the CPU with the same point-sampling draws: K1 twice per
+    batch on the card, every bbox within 1e-3 m."""
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.models.pose_estimator import adapose
+    from rgbmanip_tpu_torch.models.pose_estimator import inference
+
+    data = str(tmp_path / "pairs")
+    T.main(["dataset=cabinet_train", "task=open_cabinet_no_dr", "controller=collect_pose",
+            "train=collect", "task.num_envs=2", "train.total_round=2", "device=cpu",
+            f"controller.learn.save_dir={data}", f"train.save_dir={tmp_path}",
+            f"train.log_dir={tmp_path}"])
+    bboxes = []
+
+    class Drawn(adapose.AdaPoseEstimator):
+        def _call_estimate(self, K, rgb1, mask1, ext1, rgb2, mask2, ext2):
+            g = torch.Generator().manual_seed(4)
+            u = [torch.rand(rgb1.shape[0], self.img_size ** 2, generator=g).to(self.device)
+                 for _ in range(2)]
+            t = [torch.as_tensor(a, device=self.device) for a in (K, rgb1, mask1, ext1,
+                                                                  rgb2, mask2, ext2)]
+            out = self._estimate(*[x.float() if x.dtype != torch.bool else x for x in t], *u)
+            bboxes.append(out[0].cpu().numpy())
+            return out
+    monkeypatch.setattr(adapose, "AdaPoseEstimator", Drawn)
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = k1.crop_resize_normalize.launches
+        out[d] = inference.main(["--data_root", data, "--device", d])
+        assert k1.crop_resize_normalize.launches - before == (2 if d == "cuda" else 0)
+    assert out["cuda"]["n"] == out["cpu"]["n"] == 2 and len(bboxes) == 2
+    assert (np.abs(bboxes[1]).max(axis=(1, 2)) < 8.0).all(), "a sentinel estimate"
+    np.testing.assert_allclose(bboxes[0], bboxes[1], rtol=0, atol=1e-3)
+
+
+def test_evaluate_on_card_matches_cpu(cuda, monkeypatch):
+    """``evaluate`` on the card: the sampler's views reach the estimate as
+    the f16 colour it keeps on the card (no host round trip), K1 twice per
+    round, and the stats equal the CPU's within 1e-3 m and 0.1 degree with
+    the same point-sampling draws."""
+    from rgbmanip_tpu_torch.models.pose_estimator import adapose
+    from rgbmanip_tpu_torch.models.pose_estimator.evaluate import evaluate
+
+    seen = []
+
+    class Drawn(adapose.AdaPoseEstimator):
+        def _estimate(self, K, rgb1, mask1, ext1, rgb2, mask2, ext2, rand1, rand2):
+            g = torch.Generator().manual_seed(len(seen))
+            u = [torch.rand(rgb1.shape[0], self.img_size ** 2, generator=g).to(self.device)
+                 for _ in range(2)]
+            return super()._estimate(K, rgb1, mask1, ext1, rgb2, mask2, ext2, *u)
+
+        def estimate_full(self, K, rgb1, mask1, ext1, rgb2, mask2, ext2):
+            seen.append((rgb1.device.type, rgb1.dtype, mask1.device.type))
+            return super().estimate_full(K, rgb1, mask1, ext1, rgb2, mask2, ext2)
+    monkeypatch.setattr(adapose, "AdaPoseEstimator", Drawn)
+    over = ["dataset=cabinet_test", "task=open_cabinet", "task.num_envs=2", "seed=5"]
+    kw = dict(checkpoint="checkpoints/estimator_fast_cabinet_aug_r5.ckpt", rounds=2,
+              img_size=S, n_pts=1024, est_overrides=dict(
+                  backend="resnet18", backbone_stride=32, volume_scale=8, n_depth=16,
+                  d_interval=0.15, warp_mode="nearest"))
+    before = k1.crop_resize_normalize.launches
+    card = evaluate(over, device=cuda, **kw)
+    assert k1.crop_resize_normalize.launches - before == 4
+    assert seen == [("cuda", torch.float16, "cuda")] * 2
+    seen.clear()
+    cpu = evaluate(over, device="cpu", **kw)
+    assert card["valid_frac"] == cpu["valid_frac"] > 0
+    for k, v in cpu.items():
+        assert abs(card[k] - v) <= (0.1 if k.endswith("_deg") else 1e-3), (k, card[k], v)

@@ -59,10 +59,7 @@ def test_main_writes_result_json(tmp_path):
 
 @pytest.mark.parametrize("override, todo", [
     ("train=controller train.train_manipulation=true", "RLManipulation"),
-    ("train=collect", "the remaining controllers and run modes"),
-    ("controller=heuristic_pose", "the remaining controllers and run modes"),
-    ("controller=homing", "the remaining controllers and run modes"),
-    ("controller=baseline", "the remaining controllers and run modes"),
+    ("manipulation.name=rl", "RLManipulation"),
 ])
 def test_what_the_port_lacks_raises_naming_its_roadmap_item(override, todo, tmp_path):
     with pytest.raises(NotImplementedError, match=todo):
@@ -71,12 +68,20 @@ def test_what_the_port_lacks_raises_naming_its_roadmap_item(override, todo, tmp_
             f"train.save_dir={tmp_path}", f"train.log_dir={tmp_path}"])
 
 
-@pytest.mark.parametrize("name", ["open_pot", "pick_mug", "close_cabinet", "close_drawer"])
-def test_tasks_the_port_lacks_raise(name):
-    with pytest.raises(NotImplementedError, match="the pot, mug and close tasks"):
-        port_train.prepare_env({"name": name}, {})
-    with pytest.raises(NotImplementedError, match="the pot, mug and close tasks"):
-        port_train.prepare_manipulation(None, {"name": name}, get_logger())
+def test_the_real_world_task_raises_naming_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="the real-world env"):
+        port_train.prepare_env({"name": "real_world"}, {})
+
+
+def test_evaluate_in_bf16_raises_naming_its_roadmap_item():
+    """The JAX package's ``evaluate`` defaults to bf16 on its chip; the port
+    evaluates in f32 and raises before it builds anything."""
+    import torch
+
+    from rgbmanip_tpu_torch.models.pose_estimator.evaluate import evaluate
+    with pytest.raises(NotImplementedError, match="opt-in reduced precision"):
+        evaluate(TASKS["open_cabinet"], checkpoint="", dtype=torch.bfloat16,
+                 device="cpu")
 
 
 def test_the_privilege_gate_opens_for_the_ports_own_oracle_only():
