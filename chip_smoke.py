@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # from the repo root, on a machine with a card
 
-The script drives eight paths of the port. The main one is the flagship
+The script drives every path of the port. The main one is the flagship
 evaluation itself (``python -m rgbmanip_tpu_torch.train`` with
 ``controller=rl``, ``pose_estimator=adapose_cabinet_fast`` and
 ``checkpoints/estimator_fast_cabinet_aug_r5.ckpt``, 8 envs, seed 11; the
@@ -27,9 +27,12 @@ two are the heuristic two-view controller with AdaPose on the pot and the
 mug (the README's rows, ``scripts/r5_chain.sh``; one estimate per round,
 K1 twice) and the estimator's inference harness on view pairs that
 ``train=collect`` wrote (``python -m
-rgbmanip_tpu_torch.models.pose_estimator.inference``, one batch of 8). Each path
-runs with every launch counter set to 0 just before it and read just after.
-Phases:
+rgbmanip_tpu_torch.models.pose_estimator.inference``, one batch of 8). Then
+the JAX package's default compute dtype, bf16: the estimate (flagship and
+paper size), ``evaluate`` and the estimator's trainer at their defaults;
+and every estimator generation of ``make_estimator`` with the heuristic
+round of ``pose_estimator=adapose_baseline``. Each path runs with every
+launch counter set to 0 just before it and read just after. Phases:
 
   1. card: name, power limit, versions; TF32 off for the f32 phases
   2. build every kernel of the path with nvcc (sm_90a) and the simulator's
@@ -101,7 +104,9 @@ empty mask gives a window of negative side), and K5, bit-exact, at
 (16, 112, 32, 24) in bf16 and f32 and at (1, 640, 8, 2), where the index
 arithmetic wraps around int32.
 
-Any failure exits non-zero. The line before the last is the kernels' JSON,
+Any failure exits non-zero. The line before the last is the kernels' JSON
+(K1's f32 launches as ``crop_resize_normalize``, its bf16 entry point's
+apart as ``crop_resize_normalize_bf16``),
 the line before that the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``. Without a card the script exits 1 and
 prints no result.
@@ -148,6 +153,7 @@ EST_REUSE = 8
 EST_TRAIN = ["dataset=cabinet_train", "task=open_cabinet", "task.num_envs=8", "seed=7",
              "img_size=192", "backend=resnet18", "backbone_stride=32", "volume_scale=8",
              "n_depth=16", "d_interval=0.15", "warp_mode=nearest", f"reuse={EST_REUSE}"]
+EST_TRAIN_F32 = EST_TRAIN + ["bf16=0"]     # phase 13 keeps its f32 gates
 EST_STEPS = 5
 EST_CPU_ENVS = 2               # envs of the card-vs-CPU training step
 K_CAM = ((439.3, 0.0, 320.0), (0.0, 439.3, 240.0), (0.0, 0.0, 1.0))
@@ -164,6 +170,21 @@ HEURISTIC_RUN = ["controller=heuristic_pose", "train=test", "train.total_round=8
 COLLECT = ["dataset=cabinet_test", "task=open_cabinet", "controller=collect_pose",
            "pose_estimator=ground_truth", "train=collect", "train.total_round=8",
            "task.num_envs=8", "seed=11"]
+# phase 15: the bf16 paths and the estimator's other generations
+BF16_PAPER_CPU = 2             # envs of the paper-size bf16 card-vs-CPU comparison
+BF16_STEPS = 3
+CKPT_MUG = "checkpoints/estimator_fast_mug_fine_r5.ckpt"
+# evaluate on the mug at the arguments of scripts/r5_chain.sh:22-26, 2 rounds
+EVAL_MUG = ["task=pick_mug", "dataset=mug_test", "task.num_envs=8", f"checkpoint={CKPT_MUG}",
+            "rounds=2", "img_size=192", "backend=resnet18", "backbone_stride=32",
+            "volume_scale=8", "n_depth=16", "d_min=0.35", "d_interval=0.08",
+            "warp_mode=nearest"]
+GEN_B = 4
+GENERATIONS = [("v1", {}), ("v3", {}), ("v5", {}), ("baseline", {}), ("realworld", {}),
+               ("v5", {"volume_channels": 8}), ("v5", {"fuse_views": True})]
+BASELINE_RUN = ["dataset=cabinet_test", "task=open_cabinet", "manipulation=open_cabinet",
+                "controller=heuristic_pose", "pose_estimator=adapose_baseline", "train=test",
+                "train.total_round=8", "task.num_envs=8", "seed=11"]
 
 
 class SmokeError(RuntimeError):
@@ -836,9 +857,9 @@ def estimator_training(np, torch, dev, card):
     undo = _capture(EstimatorTrainer, "step", lambda self, batch: kept.append((self, batch)))
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         head = os.path.join(tmp, "head.ckpt")
-        argv = EST_TRAIN + [f"steps={EST_STEPS}", f"resume={CKPT_EST}", f"save={head}",
-                            f"log_dir={os.path.join(tmp, 'logs')}", "log_every=1",
-                            "device=cuda"]
+        argv = EST_TRAIN_F32 + [f"steps={EST_STEPS}", f"resume={CKPT_EST}", f"save={head}",
+                                f"log_dir={os.path.join(tmp, 'logs')}", "log_every=1",
+                                "device=cuda"]
         k1.crop_resize_normalize.launches = 0
         try:
             t0 = time.perf_counter()
@@ -861,7 +882,7 @@ def estimator_training(np, torch, dev, card):
         replayed = statistics.median(st["step_seconds"][1:])
         steady = 1.0 / (replayed + ph.get("render", 0.0) / EST_REUSE)
         say("est-train", f"{card} | python -m rgbmanip_tpu_torch.models.pose_estimator."
-            f"train_estimator {' '.join(EST_TRAIN)} steps={EST_STEPS} resume={CKPT_EST} "
+            f"train_estimator {' '.join(EST_TRAIN_F32)} steps={EST_STEPS} resume={CKPT_EST} "
             f"device=cuda: {st['steps']} steps in {st['seconds']:.2f} s "
             f"({st['steps'] / st['seconds']:.2f} steps/s incl. the first step's warm-up; "
             f"{main_s:.1f} s with set-up); render {ph.get('render', 0.0):.3f} s "
@@ -945,6 +966,365 @@ def estimator_training(np, torch, dev, card):
     return launches
 
 
+# ------------------------------------------------ phase 15: bf16, generations --
+def bf16_estimates(np, torch, dev, card):
+    """Phase 15a: the bf16 estimate (``evaluate``'s default compute dtype):
+    the flagship configuration with its checkpoint at B=8 and the paper
+    size on seeded weights at B=16, each through ``estimate_full`` with
+    every launch counter set to 0 just before and read just after (K1
+    twice, both its bf16 entry point); K1-bf16 bit for bit against
+    ``plain(...).to(bf16)`` on the estimate's windows; the card against the
+    CPU, both bf16 (the first ``n_cpu`` envs), within twice the CPU's own
+    bf16-to-f32 gap and 1e-3 m, with equal valid flags; the bf16-to-f32
+    distance on the card, at least half the CPU's on the same envs; the
+    wall, busy and idle times and top kernels of both dtypes. Returns K1's bf16 launches, the largest |kernel -
+    plain| and one timing input (the flagship batch's view-1 frames and
+    windows)."""
+    from rgbmanip_tpu_torch.config.loader import load_group
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import AdaPoseEstimator
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    bf16 = torch.bfloat16
+    total = 0
+    err = 0.0
+    timing_input = None
+    for name, cfg, B, n_cpu in (
+            ("flagship", load_group("pose_estimator", "adapose_cabinet_fast",
+                                    {"checkpoint_path": CKPT_EST}), B_MAIN, B_MAIN),
+            ("paper", load_group("pose_estimator", "adapose_cabinet", PAPER_OVERRIDES),
+             B_PAPER[1], BF16_PAPER_CPU)):
+        S = int(cfg["img_size"])
+        host = pair(np, np.random.default_rng(60 + B), B)
+        inputs = tuple(torch.from_numpy(a).to(dev) for a in host)
+        est16 = AdaPoseEstimator(cfg, device=dev, seed=0, dtype=bf16)
+        est32 = AdaPoseEstimator(cfg, device=dev, seed=0)
+        k1.crop_resize_normalize.launches = 0
+        k1.crop_resize_normalize.launches_bf16 = 0
+        k5.row_gather.launches = 0
+        full = est16.estimate_full(*inputs)
+        launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                    "crop_resize_normalize_bf16": k1.crop_resize_normalize.launches_bf16,
+                    "row_gather": k5.row_gather.launches}
+        check(launches == {"crop_resize_normalize": 2, "crop_resize_normalize_bf16": 2,
+                           "row_gather": 0},
+              f"{name} bf16 estimate: launches {launches}; it launches K1 twice, both "
+              f"times its bf16 entry point, and nothing else")
+        check(np.isfinite(full["bbox"]).all(), f"{name} bf16 estimate: non-finite bbox")
+        total += launches["crop_resize_normalize_bf16"]
+        n_win = 0
+        for rgb, mask in ((inputs[1], inputs[2]), (inputs[4], inputs[5])):
+            win = k1_windows(torch, mask, S)
+            out = k1.crop_resize_normalize(rgb, *win, S, out_dtype=bf16)
+            ref = k1.crop_resize_normalize_plain(rgb, *win, S).to(bf16)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"{name}: K1's bf16 entry point differs from "
+                  f"plain(...).to(bf16) on the estimate's windows")
+            err = max(err, (out.float() - ref.float()).abs().max().item())
+            n_win += rgb.shape[0]
+        if timing_input is None:
+            timing_input = (inputs[1], k1_windows(torch, inputs[2], S), S)
+
+        g = torch.Generator().manual_seed(70 + B)
+        u = [torch.rand(B, S * S, generator=g) for _ in range(2)]
+        b16, v16, _ = est16._estimate(*inputs, *(x.to(dev) for x in u))
+        b32, v32, _ = est32._estimate(*inputs, *(x.to(dev) for x in u))
+        both = (v16 & v32).cpu().numpy()
+        own = float(np.abs(b16.cpu().numpy() - b32.cpu().numpy())[both].max(initial=0.0))
+        cpu = {}
+        for dt in (bf16, torch.float32):
+            e = AdaPoseEstimator(cfg, device="cpu", seed=0, dtype=dt)
+            bb, vv, _ = e._estimate(*(torch.from_numpy(a[:n_cpu]) for a in host),
+                                    *(x[:n_cpu] for x in u))
+            cpu[dt] = (bb.numpy(), vv.numpy())
+        ok = cpu[bf16][1]
+        gaps = np.abs(cpu[bf16][0] - cpu[torch.float32][0])[ok]
+        gap = float(gaps.max(initial=0.0))
+        d = float(np.abs(b16[:n_cpu].cpu().numpy() - cpu[bf16][0])[ok].max(initial=0.0))
+        vsame = bool((v16[:n_cpu].cpu().numpy() == ok).all())
+        bound = max(2 * gap, 1e-3)
+        # bf16's rounding shows on the card as on the CPU, on the same envs:
+        # a card that ran f32 would sit 0 from its own f32 estimate
+        own_mean = float(np.abs((b16 - b32)[:n_cpu].cpu().numpy())[ok].mean())
+        say("bf16", f"{name} ({S} px, B={B}) bf16: launches {launches}; K1-bf16 equals "
+            f"plain(...).to(bf16) bit for bit on all {n_win} windows; card vs CPU (both "
+            f"bf16, first {n_cpu} envs, same draws): max |bbox diff| {d:.3g} m (limit "
+            f"{bound:.3g}: twice the CPU's own bf16-to-f32 gap {gap:.3g} m, at least "
+            f"1e-3), valid flags equal: {vsame} ({int(ok.sum())}/{n_cpu} valid); on the "
+            f"card bf16 vs f32: max |bbox diff| {own:.3g} m over {int(both.sum())}/{B} "
+            f"envs valid in both, valid {int(v16.sum())} / {int(v32.sum())}; mean over "
+            f"the compared envs {own_mean:.3g} m against the CPU's {gaps.mean():.3g} m "
+            f"(at least half of it)")
+        check(vsame and d <= bound, f"{name}: card and CPU bf16 estimates disagree")
+        check(own_mean >= 0.5 * gaps.mean(), f"{name}: the card's bf16 estimate sits too "
+              f"close to its own f32 estimate: it did not compute in bf16")
+        check(ok.any(), f"{name}: no valid bf16 estimate on the CPU: the comparison "
+              f"would be of sentinel boxes")
+
+        for label, est in (("bf16", est16), ("f32", est32)):
+            def estimate(est=est):
+                est.estimate_full(*inputs)
+            wall = host_ms(torch, estimate, reps=5)
+            kernels = device_times(torch, estimate, n=3)
+            busy = sum(kernels.values())
+            say("time", f"{card} | {name} estimate B={B} {label} (inputs on the card): "
+                f"{wall:.2f} ms wall, {B / wall * 1e3:.0f} view pairs/s; device busy "
+                f"{busy:.2f} ms, idle {(1 - busy / wall) * 100:.0f}% of the wall time")
+            for kname, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+                say("time", f"    {v:.4f} ms ({v / busy * 100:.1f}%) {kname[:90]}")
+    return total, err, timing_input
+
+
+def bf16_evaluate(np, torch, card):
+    """Phase 15b: ``evaluate.main`` at its defaults (bf16, the card) with the
+    mug arguments of ``scripts/r5_chain.sh:22-26``, 2 rounds of 8, with
+    every launch counter set to 0 just before and read just after (K1's bf16
+    entry point twice per round). Accuracy printed, not gated. Returns
+    K1's bf16 launches."""
+    from rgbmanip_tpu_torch.models.pose_estimator import evaluate as EV
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    k1.crop_resize_normalize.launches = 0
+    k1.crop_resize_normalize.launches_bf16 = 0
+    k5.row_gather.launches = 0
+    t0 = time.perf_counter()
+    stats = EV.main(EVAL_MUG)
+    secs = time.perf_counter() - t0
+    launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                "crop_resize_normalize_bf16": k1.crop_resize_normalize.launches_bf16,
+                "row_gather": k5.row_gather.launches}
+    check(launches == {"crop_resize_normalize": 4, "crop_resize_normalize_bf16": 4,
+                       "row_gather": 0},
+          f"evaluate.main: launches {launches}; 2 rounds launch K1 4 times, all its bf16 "
+          f"entry point, and nothing else")
+    say("bf16", f"{card} | python -m rgbmanip_tpu_torch.models.pose_estimator.evaluate "
+        f"{' '.join(EVAL_MUG)} (bf16 and the card by default): "
+        + " ".join(f"{k}={v:.4f}" for k, v in stats.items())
+        + f" (not gated: 16 estimates) in {secs:.1f} s incl. set-up; launches {launches}")
+    return launches["crop_resize_normalize_bf16"]
+
+
+def one_step(torch, cfg, device, dtype, batch):
+    """One ``EstimatorTrainer`` step of a fresh estimator from ``cfg``'s
+    head: (loss parts, its (params, batch_stats) trees flattened, the step's
+    gradient flattened in parameter order on the host)."""
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import AdaPoseEstimator
+    from rgbmanip_tpu_torch.models.pose_estimator.converter import to_jax_params
+    from rgbmanip_tpu_torch.models.pose_estimator.training import EstimatorTrainer
+    from rgbmanip_tpu_torch.utils.checkpoint import flatten
+
+    e = AdaPoseEstimator(cfg, device=device, dtype=dtype)
+    _, parts = EstimatorTrainer(e.model, lr=1e-4).step(
+        {k: v.to(device) for k, v in batch.items()})
+    grad = torch.cat([p.grad.reshape(-1).cpu() for p in e.model.parameters()
+                      if p.grad is not None])
+    return parts, [flatten(t) for t in to_jax_params(e.model)], grad
+
+
+def bf16_training(np, torch, dev, card):
+    """Phase 15c: ``train_estimator.main`` at its default (bf16) at the
+    production recipe, resumed from the committed head, 3 steps, with K1's
+    counters set to 0 just before and read just after (the sampler crops in
+    f32: K1's f32 entry point twice per batch); steps/s and one step's
+    busy and idle time; one step on the card against the CPU from the saved
+    head, with each one's f32 step beside it to show bf16's rounding on the
+    card. Returns K1's f32 launches."""
+    import tempfile
+
+    from rgbmanip_tpu_torch.models.pose_estimator import train_estimator as TE
+    from rgbmanip_tpu_torch.models.pose_estimator.training import EstimatorTrainer
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+
+    kept = []
+    undo = _capture(EstimatorTrainer, "step", lambda self, batch: kept.append((self, batch)))
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        head = os.path.join(tmp, "head.ckpt")
+        argv = EST_TRAIN + [f"steps={BF16_STEPS}", f"resume={CKPT_EST}", f"save={head}",
+                            f"log_dir={os.path.join(tmp, 'logs')}", "log_every=1"]
+        k1.crop_resize_normalize.launches = 0
+        k1.crop_resize_normalize.launches_bf16 = 0
+        try:
+            est = TE.main(argv)                       # bf16 and the card by default
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        launches = k1.crop_resize_normalize.launches
+        st = est.train_stats
+        prepared = st["counts"]["prepare"]
+        check(est.dtype == torch.bfloat16 and est.device.type == "cuda"
+              and {p.dtype for p in est.model.parameters()} == {torch.float32},
+              f"train_estimator.main trained in {est.dtype} on {est.device}, not bf16 "
+              f"compute with f32 parameters on the card")
+        check(launches == 2 * prepared and k1.crop_resize_normalize.launches_bf16 == 0,
+              f"K1 launched {launches} times ({k1.crop_resize_normalize.launches_bf16} of them "
+              f"bf16) for {prepared} prepared batches; the sampler crops in f32, twice a batch")
+        trainer, batch = kept[-1]
+        wall = host_ms(torch, lambda: trainer.step(batch), reps=5)
+        kernels = device_times(torch, lambda: trainer.step(batch), n=3)
+        busy = sum(kernels.values())
+        replayed = statistics.median(st["step_seconds"][1:])
+        say("bf16", f"{card} | python -m rgbmanip_tpu_torch.models.pose_estimator."
+            f"train_estimator {' '.join(EST_TRAIN)} steps={BF16_STEPS} resume={CKPT_EST} "
+            f"(bf16 and the card by default): {st['steps']} steps in {st['seconds']:.2f} s "
+            f"({st['steps'] / st['seconds']:.2f} steps/s incl. the first step's warm-up; a "
+            f"replayed step {replayed * 1e3:.1f} ms); one training step at B="
+            f"{batch['img1'].shape[0]}: {wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
+            f"{(1 - busy / wall) * 100:.0f}%, {1e3 / wall:.2f} train steps/s without the "
+            f"sampler; K1 launches {launches} (f32, the sampler's crops)")
+        for name, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+            say("bf16", f"    {v:.4f} ms ({v / busy * 100:.1f}%) {name[:90]}")
+
+        cfg = dict(est.cfg, load=True, checkpoint_path=head)
+        sub = {k: v[:EST_CPU_ENVS] for k, v in batch.items()}
+        out = {}
+        for name, d, dt in (("card", dev, torch.bfloat16), ("card f32", dev, torch.float32),
+                            ("cpu", torch.device("cpu"), torch.bfloat16),
+                            ("cpu f32", torch.device("cpu"), torch.float32)):
+            out[name] = one_step(torch, cfg, d, dt, sub)
+        c16, c32, g16, g32 = (out[k][0] for k in ("cpu", "cpu f32", "card", "card f32"))
+        rel = {k: abs(g16[k] - c16[k]) / abs(c16[k]) for k in c16}
+        bound = {k: max(2 * abs(c16[k] - c32[k]) / abs(c32[k]), 1e-2) for k in c16}
+        # bf16's rounding shows on the card as on the CPU: a card that ran
+        # f32 would sit 0 from its own f32 step
+        own = sum(abs(g16[k] - g32[k]) / abs(g32[k]) for k in c16)
+        gap = sum(abs(c16[k] - c32[k]) / abs(c32[k]) for k in c16)
+        (gp, gs), (cp, cs) = out["card"][1], out["cpu"][1]
+        stats = max(float(np.abs(gs[k] - cs[k]).max() / (np.abs(cs[k]).max() + 1e-6))
+                    for k in cs)
+        params = max(float(np.abs(gp[k] - cp[k]).max()) for k in cp)
+        ga, gb = out["card"][2], out["cpu"][2]
+        cos = float(ga @ gb / ga.norm() / gb.norm())
+        say("bf16", f"one bf16 step on the card vs the CPU from the saved head on the last "
+            f"batch's first {EST_CPU_ENVS} envs: loss parts (relative; limit twice the "
+            f"CPU's own bf16-to-f32 difference, at least 1e-2) "
+            + ", ".join(f"{k} {rel[k]:.3g} ({bound[k]:.3g})" for k in sorted(rel))
+            + f"; the loss parts' bf16-to-f32 difference summed, card {own:.3g} against the "
+            f"CPU's {gap:.3g} (at least half of it); gradient cosine card vs CPU {cos:.5f} "
+            f"(at least 0.9); BatchNorm running statistics {stats:.3g} of their largest "
+            f"(limit 1e-2), parameters {params:.3g} (limit 2.1e-4, two learning rates and "
+            f"rounding)")
+        check(all(rel[k] <= bound[k] for k in rel) and stats <= 1e-2 and params <= 2.1e-4,
+              "the bf16 training step differs between the card and the CPU")
+        check(own >= 0.5 * gap, "the card's bf16 training step sits too close to its own "
+              "f32 step: it did not compute in bf16")
+        check(cos >= 0.9, "the bf16 gradients on the card and the CPU point apart")
+    return launches
+
+
+def generations(np, torch, dev, card):
+    """Phase 15d: every generation of ``make_estimator`` (v1, v3, v5,
+    baseline, realworld) and v5 with ``volume_channels=8`` and with
+    ``fuse_views``, at B=4 on seeded weights and the flagship knobs, each
+    through ``estimate_full`` with the counters set to 0 just before and
+    read just after (K1 twice), then card against CPU with the same draws
+    and RANSAC hypotheses (1e-3 m, equal valid flags); and one round of
+    heuristic + AdaPose with ``pose_estimator=adapose_baseline`` on
+    ``cabinet_test`` (success printed: its released weights are not in the
+    repo). Returns K1's f32 launches."""
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.config.loader import load_config, load_group
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import make_estimator
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+    from rgbmanip_tpu_torch.ops.geometry import ransac_hypotheses
+
+    total = 0
+    B = GEN_B
+    host = pair(np, np.random.default_rng(80), B)
+    for version, over in GENERATIONS:
+        knobs = {k: v for k, v in over.items() if k != "fuse_views"}
+        cfg = load_group("pose_estimator", "adapose_cabinet_fast",
+                         {"load": False, "checkpoint_path": "", **knobs})
+        S, N = int(cfg["img_size"]), int(cfg["n_pts"])
+        label = version + "".join(f" {k}={v}" for k, v in over.items())
+
+        def build(d):
+            # fuse_views is the network's knob, not the estimator's
+            e = make_estimator(version, cfg, device=d, seed=0)
+            e.model.fuse_views = over.get("fuse_views", False)
+            return e
+        est = build(dev)
+        inputs = tuple(torch.from_numpy(a).to(dev) for a in host)
+        k1.crop_resize_normalize.launches = 0
+        k1.crop_resize_normalize.launches_bf16 = 0
+        k5.row_gather.launches = 0
+        t0 = time.perf_counter()
+        full = est.estimate_full(*inputs)
+        first_s = time.perf_counter() - t0
+        launches = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16,
+                    k5.row_gather.launches)
+        check(launches == (2, 0, 0), f"{label}: launches (K1 f32, K1 bf16, K5) {launches}; "
+              f"an estimate launches K1 twice")
+        check(np.isfinite(full["bbox"]).all(), f"{label}: non-finite bbox")
+        total += launches[0]
+        g = torch.Generator().manual_seed(90)
+        u = [torch.rand(B, S * S, generator=g) for _ in range(2)]
+        idx = ransac_hypotheses(g, B, N)
+        out = {}
+        for d, e in ((dev, est), (torch.device("cpu"), build(torch.device("cpu")))):
+            bb, vv, _ = e._estimate(*(torch.from_numpy(a).to(d) for a in host),
+                                    *(x.to(d) for x in u), idx.to(d))
+            out[d.type] = (bb.cpu().numpy(), vv.cpu().numpy())
+        bdiff = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+        vsame = bool((out["cuda"][1] == out["cpu"][1]).all())
+        wall = host_ms(torch, lambda: est.estimate_full(*inputs), reps=3)
+        say("gen", f"{label} ({S} px, B={B}, seeded weights): launches (K1 f32, K1 bf16, "
+            f"K5) {launches}; card vs CPU: max |bbox diff| {bdiff:.3g} m (limit 1e-3), "
+            f"valid flags equal: {vsame} ({int(out['cpu'][1].sum())}/{B} valid); estimate "
+            f"{wall:.2f} ms wall on the card ({first_s:.2f} s for the first call)")
+        check(bdiff <= 1e-3 and vsame, f"{label}: card and CPU estimates disagree")
+
+    cfg = load_config(BASELINE_RUN + ["device=cuda"])
+    N = int(cfg["task"]["num_envs"])
+    k1.crop_resize_normalize.launches = 0
+    k1.crop_resize_normalize.launches_bf16 = 0
+    k5.row_gather.launches = 0
+    rec = heuristic_round(np, torch, T, cfg, dev, [])
+    launches = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16,
+                k5.row_gather.launches)
+    n_est = len(rec["calls"])
+    check(n_est >= 1 and launches == (2 * n_est, 0, 0),
+          f"adapose_baseline round: launches {launches} in {n_est} estimates")
+    check(rec["param_devices"] == {"cuda"} and rec["devices"] == {"cuda"},
+          "the baseline estimator is not on the card")
+    total += launches[0]
+    res = rec["result"]
+    say("gen", f"{card} | python -m rgbmanip_tpu_torch.train {' '.join(BASELINE_RUN)} "
+        f"device=cuda, one round: success {res['success_rate']:.2f}% over {res['rounds']} "
+        f"episodes (not gated: seeded weights, the released .pth is not in the repo), "
+        f"{rec['seconds']:.2f} s; launches (K1 f32, K1 bf16, K5) {launches}")
+    return total
+
+
+def k1_bf16_timing(torch, F, rgb, win, S, card):
+    """Phase 15: K1's bf16 entry point's device time at the flagship bf16
+    estimate's B=8 frames and windows, beside its bound (bf16 output), its
+    plain version's (``plain(...).to(bf16)``) and ``F.grid_sample``'s.
+    Returns ({"kernel", "plain", "library": ms}, bound ms, bound_by)."""
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+
+    grid = grid_for(torch, *win, S)
+    bf16 = torch.bfloat16
+    calls = {
+        "kernel": lambda: k1.crop_resize_normalize(rgb, *win, S, out_dtype=bf16),
+        "plain": lambda: k1.crop_resize_normalize_plain(rgb, *win, S).to(bf16),
+        "library": lambda: F.grid_sample(rgb.permute(0, 3, 1, 2), grid, mode="bilinear",
+                                         padding_mode="border", align_corners=False),
+    }
+    times = {k: device_times(torch, fn) for k, fn in calls.items()}
+    kern = {n: v for n, v in times["kernel"].items() if "crop_resize_normalize_kernel" in n}
+    check(len(kern) == 1, f"the profiler did not see K1's bf16 kernel: {sorted(times['kernel'])}")
+    ms = {"kernel": sum(kern.values()), "plain": sum(times["plain"].values()),
+          "library": sum(times["library"].values())}
+    bound, bound_by = k1_bound(torch, *win, S, out_bytes=2)
+    say("time", f"{card} | K1 bf16 entry point B={rgb.shape[0]} {H}x{W}->{S}, device time per "
+        f"call: kernel {ms['kernel']:.4f} ms ({bound / ms['kernel'] * 100:.1f}% of the "
+        f"{bound:.4f} ms {bound_by} bound, bf16 out), plain + cast {ms['plain']:.4f} ms, "
+        f"grid_sample {ms['library']:.4f} ms")
+    return ms, bound, bound_by
+
+
 # ----------------------------------------------------------------- inputs --
 def look_at(np, eye, target):
     eye = np.asarray(eye, np.float64)
@@ -1004,11 +1384,12 @@ def k1_windows(torch, mask, S):
     return rmin.float(), cmin.float(), inv
 
 
-def k1_bound(torch, rmin, cmin, inv, S):
+def k1_bound(torch, rmin, cmin, inv, S, out_bytes=4):
     """Least time for K1 on these windows: each source pixel that a tap with
     a non-zero weight touches read once (12 B), each output value written
-    once, the windows read once; against ~11 f32 operations per output
-    value. Returns (ms, "bytes" or "operations")."""
+    once (``out_bytes``: 4 for f32, 2 for bf16), the windows read once;
+    against ~11 f32 operations per output value. Returns (ms, "bytes" or
+    "operations")."""
     from rgbmanip_tpu_torch.ops.crop_resize import _hat_taps
     from rgbmanip_tpu_torch.scripts.perfutil import HBM_BYTES_PER_S
 
@@ -1021,7 +1402,7 @@ def k1_bound(torch, rmin, cmin, inv, S):
     src_px = sum(distinct(rmin[b:b + 1], inv[b:b + 1], H)
                  * distinct(cmin[b:b + 1], inv[b:b + 1], W) for b in range(B))
     out_values = B * S * S * 3
-    nbytes = src_px * 12 + out_values * 4 + B * 12            # f32 out
+    nbytes = src_px * 12 + out_values * out_bytes + B * 12
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = out_values * 11 / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1531,6 +1912,13 @@ def run():
     heur_launches, heur_err = heuristic_eval(np, torch, dev, card)
     inf_launches = inference_batch(np, torch, dev, card)
 
+    # 15. bf16 (the JAX package's default compute dtype); every generation -----
+    bf16_launches, bf16_err, (t_rgb, t_win, t_S) = bf16_estimates(np, torch, dev, card)
+    bf16_launches += bf16_evaluate(np, torch, card)
+    bf16_train_launches = bf16_training(np, torch, dev, card)
+    gen_launches = generations(np, torch, dev, card)
+    k1_16_ms, k1_16_bound, k1_16_by = k1_bf16_timing(torch, F, t_rgb, t_win, t_S, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
@@ -1538,13 +1926,25 @@ def run():
         "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
         "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
         "launches": (eval_launches["crop_resize_normalize"] + ppo_launches + est_launches
-                     + heur_launches + inf_launches),
+                     + heur_launches + inf_launches + bf16_train_launches + gen_launches),
         "max_abs_err": max(err, eval_err, heur_err),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": ms["library"],
+    }, {
+        "name": "crop_resize_normalize_bf16",
+        "route": "cuda",
+        "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
+        "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
+        "launches": bf16_launches,
+        "max_abs_err": bf16_err,
+        "ms": k1_16_ms["kernel"],
+        "plain_ms": k1_16_ms["plain"],
+        "bound_ms": k1_16_bound,
+        "bound_by": k1_16_by,
+        "library_ms": k1_16_ms["library"],
     }, {
         "name": "row_gather",
         "route": "cuda",

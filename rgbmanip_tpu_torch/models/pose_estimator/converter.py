@@ -1,13 +1,16 @@
-"""Carry estimator weights into the port's ``StereoPoseNetWithDepth``: the
-JAX package's (a flax tree of numpy arrays, ``load_jax_params``) and the
+"""Carry estimator weights into the port's ``StereoPoseNetWithDepth`` and
+``StereoPoseNetV1``: the JAX package's (a flax tree of numpy arrays, ``load_jax_params``) and the
 reference's released torch state dicts (a ``.pth`` file,
 ``load_torch_state_dict``).
 
 The port's modules are named after the reference torch state_dict keys, so
 the key map below is the JAX package's ``converter.torch_key_map`` (torch key
 -> flax path), with the block counts and downsample convs of the model's
-backend (resnet34, resnet18 or resnet10s), and a ``.pth`` of the reference
-loads into the same names. The backbone stride changes no parameter:
+backend (resnet34, resnet18 or resnet10s) and the parameters the
+architecture adds or drops (``volume_reduce``, ``camera_pts_mlp``, no
+``heads`` without pose regression; V1's ``volume_conv`` and ``fuse_conv`` in
+place of the U-Net), and a ``.pth`` of the reference loads into the same
+names. The backbone stride changes no parameter:
 a stride-8 downsample conv is a 1x1 conv of stride 1, and the slim
 resnet10s ``up_1`` a 1x1 conv. Layouts, flax -> torch:
 
@@ -53,9 +56,13 @@ TORCH_TO_FLAX = {
 }
 
 
-def torch_key_map(backend: str = "resnet18") -> Dict[str, Tuple[str, Path, str]]:
+def torch_key_map(backend: str = "resnet18", *, arch: str = "with_depth",
+                  regress_pose: bool = True, volume_channels: int = 0,
+                  realworld_pts: bool = False) -> Dict[str, Tuple[str, Path, str]]:
     """torch key -> (flax collection, flax path, layout kind) for the port's
-    ``StereoPoseNetWithDepth`` with ``backend`` (regressed pose)."""
+    ``StereoPoseNetWithDepth`` (``arch="with_depth"``, its knobs that add or
+    drop parameters as given) or ``StereoPoseNetV1`` (``arch="v1"``) with
+    ``backend``. ``model_key_map`` reads them off a model."""
     if backend not in ARCH:
         raise ValueError(f"backend must be one of {sorted(ARCH)}, got {backend!r}")
     blocks_per_stage, planes, _ = ARCH[backend]
@@ -91,22 +98,39 @@ def torch_key_map(backend: str = "resnet18") -> Dict[str, Tuple[str, Path, str]]
             p(f"{tk}.{t}.weight", fpath + (f"dense_{i}", "kernel"), "dense")
             p(f"{tk}.{t}.bias", fpath + (f"dense_{i}", "bias"), "copy")
 
+    def bn(tk, fpath):
+        p(tk + ".weight", fpath + ("scale",), "copy")
+        p(tk + ".bias", fpath + ("bias",), "copy")
+        m[tk + ".running_mean"] = ("batch_stats", fpath + ("mean",), "copy")
+        m[tk + ".running_var"] = ("batch_stats", fpath + ("var",), "copy")
+
     mlp("instance_color", ("instance_color",), (0,))
     mlp("nocs_head", ("nocs_head",), (0, 2, 4))
+
+    if arch == "v1":
+        for i in range(3):
+            p(f"volume_conv.conv_{i}.weight", ("volume_conv", f"conv_{i}", "kernel"), "conv3d")
+            bn(f"volume_conv.bn_{i}", ("volume_conv", f"bn_{i}"))
+        mlp("fuse_conv", ("fuse_conv",), (0, 2))
+    elif arch == "with_depth":
+        if volume_channels:
+            conv2d("volume_reduce", "volume_reduce")
+        cr = ("cost_regularization",)
+        for name in ("conv0", "conv1", "conv2", "conv3", "conv4", "conv5", "conv6",
+                     "conv7", "conv9", "conv11"):
+            kind = "deconv3d" if name in ("conv7", "conv9", "conv11") else "conv3d"
+            tk = f"cost_regularization.{name}"
+            p(tk + ".conv.weight", cr + (name, "conv", "kernel"), kind)
+            bn(tk + ".bn", cr + (name, "bn"))
+        p("cost_regularization.prob.weight", cr + ("prob", "kernel"), "conv3d")
+        if not regress_pose:
+            return m
+        if realworld_pts:
+            mlp("camera_pts_mlp", ("camera_pts_mlp",), (0, 2))
+    else:
+        raise ValueError(f"unknown estimator arch {arch!r}")
+
     mlp("nocs_pts_mlp", ("nocs_pts_mlp",), (0, 2))
-
-    cr = ("cost_regularization",)
-    for name in ("conv0", "conv1", "conv2", "conv3", "conv4", "conv5", "conv6",
-                 "conv7", "conv9", "conv11"):
-        kind = "deconv3d" if name in ("conv7", "conv9", "conv11") else "conv3d"
-        tk = f"cost_regularization.{name}"
-        p(tk + ".conv.weight", cr + (name, "conv", "kernel"), kind)
-        p(tk + ".bn.weight", cr + (name, "bn", "scale"), "copy")
-        p(tk + ".bn.bias", cr + (name, "bn", "bias"), "copy")
-        m[tk + ".bn.running_mean"] = ("batch_stats", cr + (name, "bn", "mean"), "copy")
-        m[tk + ".bn.running_var"] = ("batch_stats", cr + (name, "bn", "var"), "copy")
-    p("cost_regularization.prob.weight", cr + ("prob", "kernel"), "conv3d")
-
     hd = ("heads",)
     mlp("pose_mlp1", hd + ("pose_mlp1",), (0, 2))
     mlp("pose_mlp2", hd + ("pose_mlp2",), (0, 2))
@@ -119,13 +143,24 @@ def torch_key_map(backend: str = "resnet18") -> Dict[str, Tuple[str, Path, str]]
     return m
 
 
+def model_key_map(model: torch.nn.Module) -> Dict[str, Tuple[str, Path, str]]:
+    """``torch_key_map`` of ``model``, a ``StereoPoseNetWithDepth`` or a
+    ``StereoPoseNetV1``."""
+    if model.arch == "v1":
+        return torch_key_map(model.backend, arch="v1")
+    return torch_key_map(model.backend, regress_pose=model.regress_pose,
+                         volume_channels=model.volume_channels,
+                         realworld_pts=model.realworld_pts)
+
+
 def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
     """Copy a flax (params, batch_stats) tree into ``model``, a
-    ``StereoPoseNetWithDepth`` whose ``backend`` picks the key map, in place. Raises
+    ``StereoPoseNetWithDepth`` or ``StereoPoseNetV1`` whose architecture
+    picks the key map (``model_key_map``), in place. Raises
     on a torch entry with no flax leaf, a flax leaf left over, or a shape
     that does not match."""
     trees = {"params": flatten(params), "batch_stats": flatten(batch_stats)}
-    kmap = torch_key_map(model.backend)
+    kmap = model_key_map(model)
     state = model.state_dict()
     targets = [k for k in state if not k.endswith("num_batches_tracked")]
     missing = [k for k in targets if k not in kmap or kmap[k][1] not in trees[kmap[k][0]]]
@@ -151,12 +186,12 @@ def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> 
 
 
 def to_jax_params(model: torch.nn.Module) -> Tuple[dict, dict]:
-    """The flax (params, batch_stats) trees of ``model``, a
-    ``StereoPoseNetWithDepth``, as nested dicts of f32 numpy arrays: the
+    """The flax (params, batch_stats) trees of ``model`` (a
+    ``StereoPoseNetWithDepth`` or ``StereoPoseNetV1``), as nested dicts of f32 numpy arrays: the
     inverse of ``load_jax_params``, leaf for leaf."""
     trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     state = model.state_dict()
-    for k, (coll, fp, kind) in torch_key_map(model.backend).items():
+    for k, (coll, fp, kind) in model_key_map(model).items():
         w = state[k].detach().cpu().numpy().astype(np.float32)
         node = trees[coll]
         for name in fp[:-1]:
@@ -169,15 +204,15 @@ def load_torch_state_dict(model: torch.nn.Module, path: str) -> Tuple[List[str],
     """Load a reference ``.pth`` state dict into ``model`` in place, with the
     semantics of the JAX package's ``convert_torch_checkpoint``: a
     ``module.`` prefix (the reference saved through ``nn.DataParallel``) is
-    stripped, ``num_batches_tracked`` skipped, keys outside the key map of
-    the model's backend are reported and left out, and a parameter the file
+    stripped, ``num_batches_tracked`` skipped, keys outside the model's key
+    map are reported and left out, and a parameter the file
     does not hold keeps its initial value. A Conv1d weight (O, I, 1) loads
     into the port's Linear (O, I). Raises on a tensor whose shape does not
     match. Returns the (missing, unknown) keys."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(obj, "state_dict"):
         obj = obj.state_dict()
-    kmap = torch_key_map(model.backend)
+    kmap = model_key_map(model)
     state = model.state_dict()
     new_state, unknown = {}, []
     for key, w in obj.items():

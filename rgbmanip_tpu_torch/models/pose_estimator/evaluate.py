@@ -13,8 +13,8 @@ device as the sampler keeps it (f16), so the estimate copies no frame.
         task=open_cabinet dataset=cabinet_test task.num_envs=8 \\
         checkpoint=saves/estimator_cabinet.ckpt rounds=12 [device=cpu]
 
-The port evaluates in f32. The JAX package's ``evaluate`` defaults to bf16
-on its chip; asking the port for another dtype raises.
+``dtype`` is the estimator's compute dtype, bf16 by default as in the JAX
+package (its CLI passes none either).
 """
 
 from __future__ import annotations
@@ -29,16 +29,10 @@ from ...config.loader import load_config
 from ...utils.logger import get_logger
 from ...utils.transform import quat_to_matrix
 
-_PRECISION = "(ROADMAP.md, Queue 1: 'opt-in reduced precision')"
-
-
 def evaluate(overrides=None, checkpoint: str = "saves/estimator_cabinet.ckpt",
              rounds: int = 12, img_size: int = 224, n_pts: int = 1024,
-             est_overrides: dict | None = None, env=None, dtype=torch.float32,
+             est_overrides: dict | None = None, env=None, dtype=torch.bfloat16,
              device=None):
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype={dtype}: the port evaluates in f32; reduced "
-                                  f"precision is not ported yet {_PRECISION}")
     log = get_logger()
     from ...train import prepare_env
     from .adapose import AdaPoseEstimator
@@ -55,7 +49,7 @@ def evaluate(overrides=None, checkpoint: str = "saves/estimator_cabinet.ckpt",
                "direct_regression": True, "real_world": False,
                "volume_scale": 2, "warp_mode": "nearest"}
     est_cfg.update(est_overrides or {})
-    est = AdaPoseEstimator(est_cfg, log, device=device)
+    est = AdaPoseEstimator(est_cfg, log, device=device, dtype=dtype)
     sampler = SimViewSampler(env, img_size=img_size, n_pts=n_pts,
                              seed=cfg.get("seed", 1234), reuse=1, device=device)
 
@@ -142,7 +136,7 @@ def main(argv=None):
             est_overrides[k] = float(kv[k])
     device = resolve_device(kv.get("device"))
     if device.type == "cuda":
-        # f32 throughout, as the parity tests hold the estimator
+        # no TF32 in the f32 parts, as the parity tests hold the estimator
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return evaluate(overrides=overrides,

@@ -7,13 +7,15 @@ labels derived analytically (``data.py``), and the train step on ``device``
     python -m rgbmanip_tpu_torch.models.pose_estimator.train_estimator \\
         dataset=cabinet_train task=open_cabinet task.num_envs=8 seed=7 \\
         img_size=192 backend=resnet18 backbone_stride=32 volume_scale=8 \\
-        n_depth=16 d_interval=0.15 warp_mode=nearest \\
+        n_depth=16 d_interval=0.15 warp_mode=nearest [bf16=0] \\
         [resume=checkpoints/estimator_fast_cabinet_aug_r5.ckpt] \\
         [steps=2000] [save=saves/estimator.ckpt] [device=cpu]
 
 The keys are the JAX package's, plus ``device`` and ``log_dir`` (its
-metrics, ``logs/estimator`` by default). The port trains in f32; ``bf16=1``
-(the JAX package's default on the TPU) raises. The returned estimator's
+metrics, ``logs/estimator`` by default). ``bf16`` defaults to 1, as in the
+JAX package: the network computes in bf16 with f32 parameters, gradients and
+Adam; ``bf16=0`` trains in f32. ``train(dtype=...)`` defaults to f32, as the
+JAX package's ``train`` does. The returned estimator's
 ``train_stats`` hold the steps, their seconds (in all and each step's, its
 sampling included), the bytes the sampler copied to the device and the
 PhaseTimer split: ``render`` (fresh view pairs),
@@ -25,12 +27,11 @@ from __future__ import annotations
 import sys
 import time
 
+import torch
+
 from ... import resolve_device
 from ...config.loader import load_config
 from ...utils.logger import MetricsWriter, get_logger
-
-_PRECISION = "(ROADMAP.md, Queue 1: 'opt-in reduced precision')"
-
 
 def train(overrides=None, steps: int = 2000, img_size: int = 224,
           n_pts: int = 1024, lr: float = 1e-4, save_path: str = "saves/estimator.ckpt",
@@ -38,7 +39,7 @@ def train(overrides=None, steps: int = 2000, img_size: int = 224,
           est_overrides: dict | None = None, reuse: int = 8, buffer_size: int = 32,
           resume: str = "", policy_ckpt: str = "", policy_mix: float = 0.5,
           policy_noise: float = 0.15, policy_pair: str = "last", view_aug: str = "box",
-          device=None, log_dir: str = "logs/estimator"):
+          device=None, log_dir: str = "logs/estimator", dtype=torch.float32):
     """Returns the trained ``AdaPoseEstimator`` (its head saved to
     ``save_path`` every ``save_every`` steps and at the end)."""
     log = get_logger()
@@ -60,7 +61,7 @@ def train(overrides=None, steps: int = 2000, img_size: int = 224,
     est_cfg.update(est_overrides or {})
     if resume:
         est_cfg.update(load=True, checkpoint_path=resume)
-    est = AdaPoseEstimator(est_cfg, log, device=device)
+    est = AdaPoseEstimator(est_cfg, log, device=device, dtype=dtype)
     trainer = EstimatorTrainer(est.model, lr=lr)
     sampler_kw = dict(img_size=img_size, n_pts=n_pts, seed=cfg.get("seed", 0),
                       reuse=reuse, buffer_size=buffer_size, d_min=est.d_min,
@@ -117,9 +118,6 @@ def main(argv=None):
              "reuse", "buffer_size", "resume", "policy_ckpt", "policy_mix",
              "policy_noise", "policy_pair", "view_aug", "save_every", "device",
              "log_dir")
-    if kv.get("bf16", "0") != "0":
-        raise NotImplementedError(f"bf16={kv['bf16']}: the port trains in f32; reduced "
-                                  f"precision is not ported yet {_PRECISION}")
     overrides = [a for a in argv if "=" in a and a.split("=")[0] not in local]
     est_overrides = {}
     for k in ("volume_scale", "n_depth", "volume_channels", "backbone_stride"):
@@ -133,8 +131,7 @@ def main(argv=None):
             est_overrides[k] = float(kv[k])
     device = resolve_device(kv.get("device"))
     if device.type == "cuda":
-        # f32 throughout, as the parity tests hold the estimator
-        import torch
+        # no TF32 in the f32 parts, as the parity tests hold the estimator
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return train(overrides=overrides,
@@ -153,7 +150,8 @@ def main(argv=None):
                  view_aug=kv.get("view_aug", "box"),
                  save_every=int(kv.get("save_every", 200)),
                  log_every=int(kv.get("log_every", 10)),
-                 device=device, log_dir=kv.get("log_dir", "logs/estimator"))
+                 device=device, log_dir=kv.get("log_dir", "logs/estimator"),
+                 dtype=torch.bfloat16 if kv.get("bf16", "1") != "0" else torch.float32)
 
 
 if __name__ == "__main__":

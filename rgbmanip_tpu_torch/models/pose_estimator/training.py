@@ -55,7 +55,10 @@ class EstimatorTrainer:
     every parameter of ``model``, a ``StereoPoseNetWithDepth`` on its
     device. Each ``step`` runs the network in train mode (batch statistics
     in the CostRegNet's BatchNorms, whose running statistics it updates) and
-    leaves it in eval mode."""
+    leaves it in eval mode. Forward and backward run in the model's compute
+    dtype with f32 parameters, so the gradients and Adam are f32, as
+    ``jax.value_and_grad`` over the JAX package's flax model gives them; the
+    loss promotes the bf16 predictions to f32 against the f32 labels."""
 
     def __init__(self, model, lr: float = 1e-4):
         self.model = model

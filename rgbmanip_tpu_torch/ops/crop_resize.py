@@ -145,9 +145,13 @@ def crop_resize_normalize(rgb, rmin, cmin, inv_ratio, out_size: int = 224,
         raise RuntimeError(f"crop_resize_normalize kernel launch failed: "
                            f"cudaError {err}")
     crop_resize_normalize.launches += 1
+    if out_dtype == torch.bfloat16:
+        crop_resize_normalize.launches_bf16 += 1
     return out
 
 
-# kernel launches so far; a run sets it to 0 and reads it to show that the
-# main path went through the kernel
+# kernel launches so far, and those of the bf16 entry point among them; a
+# run sets both to 0 and reads them to show that the main path went through
+# the kernel
 crop_resize_normalize.launches = 0
+crop_resize_normalize.launches_bf16 = 0

@@ -56,11 +56,12 @@ def _uniform(rand, shape, device):
 
 
 def prepare_model_input(rgb, mask, K, rand, out_size: int = 224,
-                        n_pts: int = 1024):
+                        n_pts: int = 1024, out_dtype=torch.float32):
     """rgb (B, H, W, 3) in [0, 1], mask (B, H, W) bool, K (B, 3, 3); ``rand``
     a torch.Generator or the (B, S*S) uniform draws. Returns (crop
-    (B, S, S, 3) f32 normalised, choose (B, n) int64, pts2d (B, n, 2),
-    newK (B, 3, 3), valid (B,))."""
+    (B, S, S, 3) normalised in ``out_dtype`` (f32 or bf16: K1's two entry
+    points), choose (B, n) int64, pts2d (B, n, 2), newK (B, 3, 3), valid
+    (B,))."""
     rgb = rgb.float().contiguous()
     maskf = mask.float()
     K = K.float()
@@ -79,7 +80,7 @@ def prepare_model_input(rgb, mask, K, rand, out_size: int = 224,
     # path's kernel multiplied by.
     inv_ratio = h * torch.tensor(1.0 / S, dtype=torch.float32, device=dev)
     crop = crop_resize_normalize(rgb, rmin.float(), cmin.float(), inv_ratio,
-                                 out_size=S, out_dtype=torch.float32)
+                                 out_size=S, out_dtype=out_dtype)
 
     # nearest crop-resize of the mask (truncation toward zero, then clip)
     ii = torch.arange(S, dtype=torch.float32, device=dev)[None]    # (1, S)

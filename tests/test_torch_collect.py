@@ -295,7 +295,7 @@ def test_evaluate_equals_jax_in_f32(monkeypatch):
     kw = dict(checkpoint=CKPT_FAST, rounds=2, img_size=192, n_pts=256, est_overrides=FAST)
     with jax_pallas_crop():
         ref = jax_evaluate(over, dtype=jnp.float32, **kw)
-    out = evaluate(over, device="cpu", **kw)
+    out = evaluate(over, device="cpu", dtype=torch.float32, **kw)
     print(f"evaluate: port {out}\n          JAX  {ref}")
     assert len(bboxes["port"]) == len(bboxes["jax"]) == 2
     for a, b in zip(bboxes["port"], bboxes["jax"]):

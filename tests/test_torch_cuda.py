@@ -506,10 +506,10 @@ def test_inference_batch_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
 
 
 def test_evaluate_on_card_matches_cpu(cuda, monkeypatch):
-    """``evaluate`` on the card: the sampler's views reach the estimate as
-    the f16 colour it keeps on the card (no host round trip), K1 twice per
-    round, and the stats equal the CPU's within 1e-3 m and 0.1 degree with
-    the same point-sampling draws."""
+    """``evaluate`` in f32 on the card: the sampler's views reach the
+    estimate as the f16 colour it keeps on the card (no host round trip), K1
+    twice per round, and the stats equal the CPU's within 1e-3 m and 0.1
+    degree with the same point-sampling draws."""
     from rgbmanip_tpu_torch.models.pose_estimator import adapose
     from rgbmanip_tpu_torch.models.pose_estimator.evaluate import evaluate
 
@@ -528,7 +528,7 @@ def test_evaluate_on_card_matches_cpu(cuda, monkeypatch):
     monkeypatch.setattr(adapose, "AdaPoseEstimator", Drawn)
     over = ["dataset=cabinet_test", "task=open_cabinet", "task.num_envs=2", "seed=5"]
     kw = dict(checkpoint="checkpoints/estimator_fast_cabinet_aug_r5.ckpt", rounds=2,
-              img_size=S, n_pts=1024, est_overrides=dict(
+              img_size=S, n_pts=1024, dtype=torch.float32, est_overrides=dict(
                   backend="resnet18", backbone_stride=32, volume_scale=8, n_depth=16,
                   d_interval=0.15, warp_mode="nearest"))
     before = k1.crop_resize_normalize.launches
@@ -540,3 +540,108 @@ def test_evaluate_on_card_matches_cpu(cuda, monkeypatch):
     assert card["valid_frac"] == cpu["valid_frac"] > 0
     for k, v in cpu.items():
         assert abs(card[k] - v) <= (0.1 if k.endswith("_deg") else 1e-3), (k, card[k], v)
+
+
+# ------------------------------------------------------------ bf16 and the generations --
+FAST = "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"
+
+
+def estimate_args(B, seed):
+    """``_estimate``'s (K, rgb1, mask1, ext1, rgb2, mask2, ext2) of ``scene``."""
+    K, rgb, mask, ext = scene(B, seed)
+    return K, rgb[0], mask[0], ext[0], rgb[1], mask[1], ext[1]
+
+
+def test_bf16_estimate_on_card_matches_cpu(cuda):
+    """The flagship estimate in bf16 (``evaluate``'s default) at B=4: K1
+    twice, both its bf16 entry point; equal valid flags and the
+    world bbox within twice the CPU's own bf16-to-f32 gap of the CPU's bf16
+    estimate (both bf16 convolution libraries part in the last bits: see
+    tests/test_torch_precision.py); and on the card at least half that gap
+    (mean) from the card's own f32 estimate, as a card that ran f32 would
+    not be."""
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"checkpoint_path": FAST})
+    args = estimate_args(4, seed=3)
+    g = torch.Generator().manual_seed(1)
+    u = [torch.rand(4, S * S, generator=g) for _ in range(2)]
+    out = {}
+    for name, d, dt in (("card", cuda, torch.bfloat16), ("card f32", cuda, torch.float32),
+                        ("cpu", torch.device("cpu"), torch.bfloat16),
+                        ("cpu f32", torch.device("cpu"), torch.float32)):
+        est = AdaPoseEstimator(cfg, device=d, dtype=dt)
+        before = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16)
+        b, v, _ = est._estimate(*(torch.from_numpy(a).to(d) for a in args), *(x.to(d) for x in u))
+        after = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16)
+        if name == "card":
+            assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
+        out[name] = (b.cpu().numpy(), v.cpu().numpy())
+    ok = out["cpu"][1]
+    assert ok.any()
+    np.testing.assert_array_equal(out["card"][1], ok)
+    gap = np.abs(out["cpu"][0] - out["cpu f32"][0])[ok]
+    assert np.abs(out["card"][0] - out["cpu"][0])[ok].max() <= 2 * gap.max()
+    assert np.abs(out["card"][0] - out["card f32"][0])[ok].mean() >= 0.5 * gap.mean()
+
+
+def test_bf16_estimator_training_step_on_card_matches_cpu(cuda):
+    """One bf16 ``EstimatorTrainer`` step (``train_estimator.main``'s
+    default) from the committed head: each loss part within twice the CPU's
+    own bf16-to-f32 difference of it (at least 1e-2 relative: both bf16 runs
+    are rounded copies of the f32 one), and the card's summed bf16-to-f32
+    difference at least half the CPU's (a card that ran f32 would show
+    none); the gradient's cosine with the CPU's 0.9 or more; BatchNorm
+    running statistics within 1e-2 of their largest, parameters within two
+    learning rates and rounding."""
+    from rgbmanip_tpu_torch.models.pose_estimator.converter import to_jax_params
+    from rgbmanip_tpu_torch.models.pose_estimator.training import EstimatorTrainer
+    from rgbmanip_tpu_torch.utils.checkpoint import flatten
+
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"checkpoint_path": FAST})
+    batch = estimator_batch(torch.device("cpu"))
+    out = {}
+    for name, d, dt in (("card", cuda, torch.bfloat16), ("card f32", cuda, torch.float32),
+                        ("cpu", torch.device("cpu"), torch.bfloat16),
+                        ("cpu f32", torch.device("cpu"), torch.float32)):
+        est = AdaPoseEstimator(cfg, device=d, dtype=dt)
+        trainer = EstimatorTrainer(est.model, lr=1e-4)
+        _, parts = trainer.step({k: v.to(d) for k, v in batch.items()})
+        grad = torch.cat([p.grad.reshape(-1).cpu() for p in est.model.parameters()
+                          if p.grad is not None])
+        out[name] = (parts, [flatten(t) for t in to_jax_params(est.model)], grad)
+    c16, c32, g16, g32 = (out[k][0] for k in ("cpu", "cpu f32", "card", "card f32"))
+    for k in c16:
+        bound = max(2 * abs(c16[k] - c32[k]) / abs(c32[k]), 1e-2)
+        assert abs(g16[k] - c16[k]) <= bound * abs(c16[k]), k
+    own = sum(abs(g16[k] - g32[k]) / abs(g32[k]) for k in c16)
+    assert own >= 0.5 * sum(abs(c16[k] - c32[k]) / abs(c32[k]) for k in c16)
+    ga, gb = out["card"][2], out["cpu"][2]
+    assert ga.shape == gb.shape
+    assert float(ga @ gb / ga.norm() / gb.norm()) >= 0.9
+    (gp, gs), (cp, cs) = out["card"][1], out["cpu"][1]
+    for k in cs:
+        assert np.abs(gs[k] - cs[k]).max() <= 1e-2 * (np.abs(cs[k]).max() + 1e-6), k
+    assert max(float(np.abs(gp[k] - cp[k]).max()) for k in cp) <= 2.1e-4
+
+
+@pytest.mark.parametrize("version,over", [("v3", {}), ("baseline", {}),
+                                          ("v5", {"volume_channels": 8})])
+def test_generation_on_card_matches_cpu(cuda, version, over):
+    """A generation of ``make_estimator`` at B=4 on seeded weights (the
+    flagship's knobs, 192 px): the same RANSAC hypotheses and draws on both,
+    equal valid flags and the world bbox within 1e-3 m."""
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import make_estimator
+    from rgbmanip_tpu_torch.ops.geometry import ransac_hypotheses
+
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"load": False, **over})
+    args = estimate_args(4, seed=5)
+    g = torch.Generator().manual_seed(2)
+    u = [torch.rand(4, S * S, generator=g) for _ in range(2)]
+    idx = ransac_hypotheses(g, 4, 1024)
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        est = make_estimator(version, cfg, device=d)
+        b, v, _ = est._estimate(*(torch.from_numpy(a).to(d) for a in args),
+                                *(x.to(d) for x in u), idx.to(d))
+        out[d.type] = (b.cpu().numpy(), v.cpu().numpy())
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)

@@ -73,17 +73,6 @@ def test_the_real_world_task_raises_naming_its_roadmap_item():
         port_train.prepare_env({"name": "real_world"}, {})
 
 
-def test_evaluate_in_bf16_raises_naming_its_roadmap_item():
-    """The JAX package's ``evaluate`` defaults to bf16 on its chip; the port
-    evaluates in f32 and raises before it builds anything."""
-    import torch
-
-    from rgbmanip_tpu_torch.models.pose_estimator.evaluate import evaluate
-    with pytest.raises(NotImplementedError, match="opt-in reduced precision"):
-        evaluate(TASKS["open_cabinet"], checkpoint="", dtype=torch.bfloat16,
-                 device="cpu")
-
-
 def test_the_privilege_gate_opens_for_the_ports_own_oracle_only():
     """``prepare_controller`` stamps ``privileged_ok`` on the skill only for
     the port's ``GroundTruthPoseEstimator``; the JAX package's class of the

@@ -167,9 +167,3 @@ def test_meta_mismatch_raises():
     with pytest.raises(ValueError, match="architecture knobs"):
         port_adapose.AdaPoseEstimator(pcfg, device="cpu")
 
-
-def test_unported_solve_raises():
-    pcfg = load_group("pose_estimator", "adapose_cabinet_fast",
-                      {"load": False, "direct_regression": False})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_adapose.AdaPoseEstimator(pcfg, device="cpu")

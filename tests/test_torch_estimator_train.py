@@ -19,7 +19,9 @@ nearest warp).
   whose gradient is near 0 may take either sign with rounding, so the
   parameters are held per element to two learning rates while the
   gradients are held tightly.
-- ``train`` through ``main`` for 2 steps with ``device=cpu``: the saved head
+- ``train`` through ``main`` for 2 steps with ``device=cpu`` and ``bf16=0``
+  (f32; ``main`` trains in bf16 by default: tests/test_torch_precision.py):
+  the saved head
   is read by the JAX package's ``AdaPoseEstimator.load`` and gives the
   port's estimate.
 """
@@ -345,7 +347,7 @@ def trained(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("est")
     argv = TASK + [f"{k}={v}" for k, v in KNOBS.items()] + [
         f"img_size={S}", f"n_pts={N_PTS}", "steps=2", "reuse=2", "log_every=1",
-        f"save={tmp / 'head.ckpt'}", f"log_dir={tmp / 'logs'}", "device=cpu"]
+        f"save={tmp / 'head.ckpt'}", f"log_dir={tmp / 'logs'}", "device=cpu", "bf16=0"]
     return ptrain.main(argv), tmp / "head.ckpt"
 
 
@@ -398,11 +400,6 @@ def test_the_port_resumes_from_a_head_of_either_package(trained, jax_estimator, 
                                 get_logger(), device="cpu").model.state_dict()
     assert all(torch.equal(from_jax[k], b[k]) for k in b
                if not k.endswith("num_batches_tracked"))
-
-
-def test_bf16_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="reduced precision"):
-        ptrain.main(TASK + ["bf16=1", "device=cpu"])
 
 
 def test_policy_view_sampler_matches_jax(tmp_path):

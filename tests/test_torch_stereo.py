@@ -177,13 +177,6 @@ def test_stereo_net_matches_jax(weights, warp_mode):
         np.testing.assert_allclose(out[k].numpy(), r, rtol=0, atol=ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("knob", [dict(volume_channels=16), dict(stereo_fusion=False),
-                                  dict(realworld_pts=True), dict(fuse_views=True)])
-def test_stereo_net_rejects_unported_knobs(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_stereo.StereoPoseNetWithDepth(**{**KNOBS, **knob})
-
-
 @pytest.mark.parametrize("knob,match", [(dict(backend="resnet50"), "backend"),
                                         (dict(backbone_stride=64), "stride")])
 def test_stereo_net_rejects_unknown_backend_and_stride(knob, match):
