@@ -31,8 +31,13 @@ rgbmanip_tpu_torch.models.pose_estimator.inference``, one batch of 8). Then
 the JAX package's default compute dtype, bf16: the estimate (flagship and
 paper size), ``evaluate`` and the estimator's trainer at their defaults;
 and every estimator generation of ``make_estimator`` with the heuristic
-round of ``pose_estimator=adapose_baseline``. Each path runs with every
-launch counter set to 0 just before it and read just after. Phases:
+round of ``pose_estimator=adapose_baseline``. Last, the run modes of the
+eighth slice: the RL skill (``manipulation=rl``, trained and played), the
+URDF fixture datasets (the gt stack on all four, a flagship round on the
+cabinet) and the real-world env with fake drivers. The estimator's trainer
+crops with K1's clamping border mode, as the JAX package's trainer crops
+on its CPU backend. Each path runs with every launch counter set to 0 just
+before it and read just after. Phases:
 
   1. card: name, power limit, versions; TF32 off for the f32 phases
   2. build every kernel of the path with nvcc (sm_90a) and the simulator's
@@ -98,15 +103,40 @@ launch counter set to 0 just before it and read just after. Phases:
      before, K1 twice); the same batch on the card and on the CPU with the
      same draws within 1e-3 m and equal valid flags; the estimate's wall
      time, device busy time, idle share and top kernels at B=8
+ 15. bf16, the JAX package's default compute dtype: the flagship and
+     paper-size estimates with K1's bf16 entry point, ``evaluate`` on the
+     mug and ``train_estimator.main`` at its default, each card against
+     the CPU; every generation of ``make_estimator`` card against the CPU,
+     and a heuristic round of ``pose_estimator=adapose_baseline``
+ 16. ``RLManipulation`` (``manipulation=rl`` with the learn and policy
+     blocks of ``controller/rl.yaml``): one ``train.train_manipulation``
+     iteration through ``train.main``, 8 envs x 16 transitions on
+     ``open_cabinet`` on the card, the same iteration on the CPU from the
+     card's initial weights and by its actions (rollout equal, losses
+     within 1e-3 relative, parameters as phase 12), then ``play`` on the
+     card in a ``train=test`` round
+ 17. the URDF fixture datasets: one round of the gt stack on each of the
+     four (card and CPU equal), and one round of the flagship evaluation
+     on ``cabinet_urdf_fixture``, card against the CPU lock-step as phase
+     11 (K1 twice per estimate, two-view estimates within 1e-3 m)
+ 18. the real-world env with fake robot, camera and segmenter drivers: two
+     estimates of the ``realworld`` generation at ``adapose_cabinet_fast``'s
+     widths on seeded weights on its 480x640 views (one with an empty
+     mask: the sentinel), card against the CPU within 1e-3 m, K1 twice each
 
 Phase 3 also holds K1 against its plain version on a reversed window (an
-empty mask gives a window of negative side), and K5, bit-exact, at
-(16, 112, 32, 24) in bf16 and f32 and at (1, 640, 8, 2), where the index
-arithmetic wraps around int32.
+empty mask gives a window of negative side), and K1's clamping border mode
+(the estimator trainer's crop, phases 13 and 15c) bit for bit in f32 and
+bf16 on the synthetic views' windows and on a sweep of centred, edge and
+corner windows; phase 7 times it beside ``grid_sample(padding_mode=
+"border")``. K5, bit-exact, at (16, 112, 32, 24) in bf16 and f32 and at
+(1, 640, 8, 2), where the index arithmetic wraps around int32.
 
 Any failure exits non-zero. The line before the last is the kernels' JSON
 (K1's f32 launches as ``crop_resize_normalize``, its bf16 entry point's
-apart as ``crop_resize_normalize_bf16``),
+apart as ``crop_resize_normalize_bf16``, its clamping mode's as
+``crop_resize_normalize_clamp`` and ``crop_resize_normalize_clamp_bf16``:
+no path runs the latter, since both packages' samplers crop in f32),
 the line before that the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``. Without a card the script exits 1 and
 prints no result.
@@ -173,6 +203,8 @@ COLLECT = ["dataset=cabinet_test", "task=open_cabinet", "controller=collect_pose
 # phase 15: the bf16 paths and the estimator's other generations
 BF16_PAPER_CPU = 2             # envs of the paper-size bf16 card-vs-CPU comparison
 BF16_STEPS = 3
+BF16_SLICE_K = 20              # a 2-env slice's bf16 loss part limit, in CPU bf16-to-f32 gaps
+BF16_SHIFT = 1                 # pixels off of the crops of the gate's control step
 CKPT_MUG = "checkpoints/estimator_fast_mug_fine_r5.ckpt"
 # evaluate on the mug at the arguments of scripts/r5_chain.sh:22-26, 2 rounds
 EVAL_MUG = ["task=pick_mug", "dataset=mug_test", "task.num_envs=8", f"checkpoint={CKPT_MUG}",
@@ -185,6 +217,18 @@ GENERATIONS = [("v1", {}), ("v3", {}), ("v5", {}), ("baseline", {}), ("realworld
 BASELINE_RUN = ["dataset=cabinet_test", "task=open_cabinet", "manipulation=open_cabinet",
                 "controller=heuristic_pose", "pose_estimator=adapose_baseline", "train=test",
                 "train.total_round=8", "task.num_envs=8", "seed=11"]
+# phase 16: RLManipulation (PPO on the joint-space actions) on open_cabinet;
+# its learn and policy blocks are controller/rl.yaml's, passed as overrides
+MANIP_RL = ["dataset=cabinet_train", "task=open_cabinet", "manipulation=open_cabinet",
+            "task.num_envs=8", "seed=11"]
+MANIP_RL_T = 16
+# phase 17: the four URDF fixture datasets (tests/fixtures/mobility_*)
+FIXTURES = {"cabinet": ("open_cabinet", "open_cabinet"), "drawer": ("open_drawer", "open_drawer"),
+            "pot": ("open_pot", "open_pot"), "mug": ("pick_mug", "pick_mug")}
+FIXTURE_GT = ["controller=gt_pose", "pose_estimator=ground_truth", "train=test",
+              "train.total_round=8", "task.num_envs=8", "seed=0"]
+# phase 18: the real-world env with fake drivers, 480x640 frames
+REALWORLD_K = ((600.0, 0.0, 320.0), (0.0, 600.0, 240.0), (0.0, 0.0, 1.0))
 
 
 class SmokeError(RuntimeError):
@@ -336,6 +380,19 @@ def k1_in_estimate_spans(path):
     return len(inside), len(k1), len(spans)
 
 
+def round_gaps(np, card_rec, cpu_rec, N):
+    """Card against CPU of two lock-stepped rounds (``eval_round``): the
+    largest action gap, the (steps, N) per-step bbox gaps, which estimates
+    came from one view duplicated, and the fused bbox gap."""
+    adiff = max(float(np.abs(a - b).max())
+                for a, b in zip(cpu_rec["actions"], card_rec["actions"]))
+    dup = card_rec["views_so_far"][1:len(card_rec["pred_bbox"]) + 1] == 1
+    bdiff = np.stack([np.abs(a - b).reshape(N, -1).max(-1) for a, b in
+                      zip(cpu_rec["pred_bbox"], card_rec["pred_bbox"])])
+    fdiff = float(np.abs(cpu_rec["fused"] - card_rec["fused"]).max())
+    return adiff, bdiff, dup, fdiff
+
+
 def flagship_eval(np, torch, dev, card):
     """The flagship evaluation on the card and on the CPU, and once more
     through ``train.main`` under the profiler. Returns K1's launches in the
@@ -421,12 +478,7 @@ def flagship_eval(np, torch, dev, card):
         check(np.array_equal(a, b) and np.array_equal(cpu_rec["masks"][t],
                                                        card_rec["masks"][t]),
               f"step {t + 1}: the rendered frames differ between the card and the CPU")
-    adiff = max(float(np.abs(a - b).max())
-                for a, b in zip(cpu_rec["actions"], card_rec["actions"]))
-    dup = card_rec["views_so_far"][1:len(card_rec["pred_bbox"]) + 1] == 1
-    bdiff = np.stack([np.abs(a - b).reshape(N, -1).max(-1) for a, b in
-                      zip(cpu_rec["pred_bbox"], card_rec["pred_bbox"])])
-    fdiff = float(np.abs(cpu_rec["fused"] - card_rec["fused"]).max())
+    adiff, bdiff, dup, fdiff = round_gaps(np, card_rec, cpu_rec, N)
     say("eval", f"card vs CPU, same draws and moves ({time.perf_counter() - t0:.1f} s for "
         f"the CPU round): frames and masks equal bit for bit at all "
         f"{len(card_rec['frames'])} steps; max |action diff| {adiff:.3g} (limit 1e-5); "
@@ -839,11 +891,13 @@ def training_stages(torch, trainer, batch, step_ms):
 def estimator_training(np, torch, dev, card):
     """Phase 13: the estimator's trainer through ``train_estimator.main`` at
     the production recipe (8 envs, reuse 8, 192 px), resumed from the
-    committed head, 5 steps, with K1's counter set to 0 just before and
-    read just after; one step's device time, top kernels and K2-K4's share
-    of it, backward included; one step on the card against the CPU from the
-    same parameters and batch; the saved head loaded back. Returns K1's
-    launches."""
+    committed head, 5 steps, with K1's counters set to 0 just before and
+    read just after (the sampler crops with K1's clamping mode, the JAX
+    trainer's border rule, twice a batch, and never with the renormalising
+    one); one step's device time, top kernels and K2-K4's share of it,
+    backward included; one step on the card against the CPU from the same
+    parameters and batch; the saved head loaded back. Returns the clamping
+    mode's launches."""
     import tempfile
 
     from rgbmanip_tpu_torch.models.pose_estimator import train_estimator as TE
@@ -860,7 +914,7 @@ def estimator_training(np, torch, dev, card):
         argv = EST_TRAIN_F32 + [f"steps={EST_STEPS}", f"resume={CKPT_EST}", f"save={head}",
                                 f"log_dir={os.path.join(tmp, 'logs')}", "log_every=1",
                                 "device=cuda"]
-        k1.crop_resize_normalize.launches = 0
+        zero_k1_counters(k1)
         try:
             t0 = time.perf_counter()
             est = TE.main(argv)
@@ -868,16 +922,18 @@ def estimator_training(np, torch, dev, card):
             main_s = time.perf_counter() - t0
         finally:
             undo()
-        launches = k1.crop_resize_normalize.launches
+        launches = k1.crop_resize_normalize_clamp.launches
         st = est.train_stats
         prepared = st["counts"]["prepare"]
         check(st["steps"] == EST_STEPS and len(kept) == EST_STEPS, "train_estimator.main "
               f"took {st['steps']} steps")
         check({p.device.type for p in est.model.parameters()} == {"cuda"},
               "the estimator did not train on the card")
-        check(launches == 2 * prepared and prepared >= EST_STEPS,
-              f"K1 launched {launches} times for {prepared} prepared batches; each "
-              f"launches it twice")
+        check(launches == 2 * prepared and prepared >= EST_STEPS
+              and k1.crop_resize_normalize.launches == 0,
+              f"K1's clamping mode launched {launches} times for {prepared} prepared "
+              f"batches, the renormalising mode {k1.crop_resize_normalize.launches} times; "
+              f"each batch launches the clamping mode twice")
         ph, n = st["phases"], st["counts"]
         replayed = statistics.median(st["step_seconds"][1:])
         steady = 1.0 / (replayed + ph.get("render", 0.0) / EST_REUSE)
@@ -889,8 +945,8 @@ def estimator_training(np, torch, dev, card):
             f"({n.get('render', 0)} fresh view pairs), prepare {ph['prepare']:.3f} s "
             f"({prepared} batches, K1 and labels), train_step {ph['train_step']:.3f} s; "
             f"host-to-device {st['h2d_bytes'] / 1e6:.2f} MB in all, "
-            f"{st['h2d_bytes'] / 1e6 / st['steps']:.2f} MB per step; K1 launches "
-            f"{launches} ({launches / prepared:.0f} per batch)")
+            f"{st['h2d_bytes'] / 1e6 / st['steps']:.2f} MB per step; K1 clamping-mode "
+            f"launches {launches} ({launches / prepared:.0f} per batch)")
         B = 8
         fresh_mb = n.get("render", 0) * 2 * B * H * W * (3 * 2 + 1) / 1e6  # f16 colour, mask
         per_batch_mb = (st["h2d_bytes"] / 1e6 - fresh_mb) / prepared
@@ -1126,10 +1182,12 @@ def bf16_training(np, torch, dev, card):
     """Phase 15c: ``train_estimator.main`` at its default (bf16) at the
     production recipe, resumed from the committed head, 3 steps, with K1's
     counters set to 0 just before and read just after (the sampler crops in
-    f32: K1's f32 entry point twice per batch); steps/s and one step's
-    busy and idle time; one step on the card against the CPU from the saved
-    head, with each one's f32 step beside it to show bf16's rounding on the
-    card. Returns K1's f32 launches."""
+    f32: the f32 entry point of K1's clamping mode twice per batch);
+    steps/s and one step's busy and idle time; one step on the card against
+    the CPU from the saved head on the last batch and on each 2-env slice
+    of it, with f32 steps beside them to show bf16's rounding on the card,
+    and a control step on crops one pixel off that the limits must reject.
+    Returns the clamping mode's f32 launches."""
     import tempfile
 
     from rgbmanip_tpu_torch.models.pose_estimator import train_estimator as TE
@@ -1142,23 +1200,26 @@ def bf16_training(np, torch, dev, card):
         head = os.path.join(tmp, "head.ckpt")
         argv = EST_TRAIN + [f"steps={BF16_STEPS}", f"resume={CKPT_EST}", f"save={head}",
                             f"log_dir={os.path.join(tmp, 'logs')}", "log_every=1"]
-        k1.crop_resize_normalize.launches = 0
-        k1.crop_resize_normalize.launches_bf16 = 0
+        zero_k1_counters(k1)
         try:
             est = TE.main(argv)                       # bf16 and the card by default
             torch.cuda.synchronize()
         finally:
             undo()
-        launches = k1.crop_resize_normalize.launches
+        launches = k1.crop_resize_normalize_clamp.launches
         st = est.train_stats
         prepared = st["counts"]["prepare"]
         check(est.dtype == torch.bfloat16 and est.device.type == "cuda"
               and {p.dtype for p in est.model.parameters()} == {torch.float32},
               f"train_estimator.main trained in {est.dtype} on {est.device}, not bf16 "
               f"compute with f32 parameters on the card")
-        check(launches == 2 * prepared and k1.crop_resize_normalize.launches_bf16 == 0,
-              f"K1 launched {launches} times ({k1.crop_resize_normalize.launches_bf16} of them "
-              f"bf16) for {prepared} prepared batches; the sampler crops in f32, twice a batch")
+        check(launches == 2 * prepared and k1.crop_resize_normalize_clamp.launches_bf16 == 0
+              and k1.crop_resize_normalize.launches == 0,
+              f"K1's clamping mode launched {launches} times "
+              f"({k1.crop_resize_normalize_clamp.launches_bf16} of them bf16), the "
+              f"renormalising mode {k1.crop_resize_normalize.launches} times, for {prepared} "
+              f"prepared batches; the sampler crops in f32 with the clamping mode, twice a "
+              f"batch")
         trainer, batch = kept[-1]
         wall = host_ms(torch, lambda: trainer.step(batch), reps=5)
         kernels = device_times(torch, lambda: trainer.step(batch), n=3)
@@ -1171,41 +1232,86 @@ def bf16_training(np, torch, dev, card):
             f"replayed step {replayed * 1e3:.1f} ms); one training step at B="
             f"{batch['img1'].shape[0]}: {wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
             f"{(1 - busy / wall) * 100:.0f}%, {1e3 / wall:.2f} train steps/s without the "
-            f"sampler; K1 launches {launches} (f32, the sampler's crops)")
+            f"sampler; K1 clamping-mode launches {launches} (f32, the sampler's crops)")
         for name, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
             say("bf16", f"    {v:.4f} ms ({v / busy * 100:.1f}%) {name[:90]}")
 
+        # One bf16 step from the saved head on the whole last batch and on
+        # each EST_CPU_ENVS-env slice of it, on the card and on the CPU, with
+        # the CPU's f32 step beside each (and the card's beside each slice's)
+        # to show bf16's rounding. Each loss part is held against a multiple
+        # of the CPU's own bf16-to-f32 difference on the same envs: twice it
+        # on the whole batch, BF16_SLICE_K times it on a slice, where
+        # BatchNorm over two envs spreads the parts further. Both multiples
+        # come from rgbmanip_tpu_torch/scripts/bf16_step_spread.py's readings
+        # over six seeds (PERF.md, section 6), and a step on crops
+        # BF16_SHIFT pixel off must fail both.
         cfg = dict(est.cfg, load=True, checkpoint_path=head)
-        sub = {k: v[:EST_CPU_ENVS] for k, v in batch.items()}
-        out = {}
-        for name, d, dt in (("card", dev, torch.bfloat16), ("card f32", dev, torch.float32),
-                            ("cpu", torch.device("cpu"), torch.bfloat16),
-                            ("cpu f32", torch.device("cpu"), torch.float32)):
-            out[name] = one_step(torch, cfg, d, dt, sub)
-        c16, c32, g16, g32 = (out[k][0] for k in ("cpu", "cpu f32", "card", "card f32"))
-        rel = {k: abs(g16[k] - c16[k]) / abs(c16[k]) for k in c16}
-        bound = {k: max(2 * abs(c16[k] - c32[k]) / abs(c32[k]), 1e-2) for k in c16}
-        # bf16's rounding shows on the card as on the CPU: a card that ran
-        # f32 would sit 0 from its own f32 step
-        own = sum(abs(g16[k] - g32[k]) / abs(g32[k]) for k in c16)
-        gap = sum(abs(c16[k] - c32[k]) / abs(c32[k]) for k in c16)
-        (gp, gs), (cp, cs) = out["card"][1], out["cpu"][1]
-        stats = max(float(np.abs(gs[k] - cs[k]).max() / (np.abs(cs[k]).max() + 1e-6))
-                    for k in cs)
-        params = max(float(np.abs(gp[k] - cp[k]).max()) for k in cp)
-        ga, gb = out["card"][2], out["cpu"][2]
-        cos = float(ga @ gb / ga.norm() / gb.norm())
-        say("bf16", f"one bf16 step on the card vs the CPU from the saved head on the last "
-            f"batch's first {EST_CPU_ENVS} envs: loss parts (relative; limit twice the "
-            f"CPU's own bf16-to-f32 difference, at least 1e-2) "
-            + ", ".join(f"{k} {rel[k]:.3g} ({bound[k]:.3g})" for k in sorted(rel))
-            + f"; the loss parts' bf16-to-f32 difference summed, card {own:.3g} against the "
-            f"CPU's {gap:.3g} (at least half of it); gradient cosine card vs CPU {cos:.5f} "
-            f"(at least 0.9); BatchNorm running statistics {stats:.3g} of their largest "
-            f"(limit 1e-2), parameters {params:.3g} (limit 2.1e-4, two learning rates and "
-            f"rounding)")
-        check(all(rel[k] <= bound[k] for k in rel) and stats <= 1e-2 and params <= 2.1e-4,
+        cpu = torch.device("cpu")
+
+        def parts_gap(sub, k, card_runs):
+            """(the card's runs by name, the CPU's bf16 and f32 runs, the
+            CPU's own bf16-to-f32 difference and the limit by loss part, and
+            for the card's bf16 and shifted runs the largest loss part's
+            difference from the CPU's bf16 over its limit)."""
+            off = dict(sub, **{n: torch.roll(sub[n], BF16_SHIFT, dims=2)
+                               for n in ("img1", "img2")})
+            runs = {name: one_step(torch, cfg, dev, dt, off if name == "shifted" else sub)
+                    for name, dt in card_runs}
+            c16, c32 = (one_step(torch, cfg, cpu, dt, sub)
+                        for dt in (torch.bfloat16, torch.float32))
+            c = {n: abs(c16[0][n] - c32[0][n]) / abs(c32[0][n]) for n in c16[0]}
+            limit = {n: max(k * c[n], 1e-2) for n in c}
+            worst = {name: max(abs(runs[name][0][n] - c16[0][n]) / abs(c16[0][n]) / limit[n]
+                               for n in c) for name in ("card", "shifted")}
+            return runs, c16, c32, c, limit, worst
+
+        runs, c16, _, c, limit, whole = parts_gap(
+            batch, 2, (("card", torch.bfloat16), ("shifted", torch.bfloat16)))
+        g16 = runs["card"][0]
+        say("bf16", f"  all {batch['img1'].shape[0]} envs: loss parts card bf16 vs CPU bf16, "
+            f"relative (limit twice the CPU's own bf16-to-f32 difference, at least 1e-2): "
+            + ", ".join(f"{n} {abs(g16[n] - c16[0][n]) / abs(c16[0][n]):.3g} ({limit[n]:.3g})"
+                        for n in sorted(c)))
+        worst, shifted, own, gap = 0.0, 0.0, 0.0, 0.0
+        stats = params = 0.0
+        cos = 1.0
+        for lo in range(0, batch["img1"].shape[0], EST_CPU_ENVS):
+            sub = {n: v[lo:lo + EST_CPU_ENVS] for n, v in batch.items()}
+            runs, c16, c32, c, limit, w = parts_gap(
+                sub, BF16_SLICE_K, (("card", torch.bfloat16), ("card f32", torch.float32),
+                                    ("shifted", torch.bfloat16)))
+            g16, g32 = runs["card"][0], runs["card f32"][0]
+            say("bf16", f"  envs {lo}-{lo + EST_CPU_ENVS - 1}: loss parts card bf16 vs CPU "
+                f"bf16, relative (limit {BF16_SLICE_K}x the CPU's own bf16-to-f32 "
+                f"difference, at least 1e-2): "
+                + ", ".join(f"{n} {abs(g16[n] - c16[0][n]) / abs(c16[0][n]):.3g} "
+                            f"({limit[n]:.3g})" for n in sorted(c)))
+            worst, shifted = max(worst, w["card"]), max(shifted, w["shifted"])
+            # bf16's rounding shows on the card as on the CPU: a card that
+            # ran f32 would sit 0 from its own f32 step
+            own += sum(abs(g16[n] - g32[n]) / abs(g32[n]) for n in c)
+            gap += sum(c.values())
+            (gp, gs), (cp, cs) = runs["card"][1], c16[1]
+            stats = max(stats, max(float(np.abs(gs[n] - cs[n]).max()
+                                         / (np.abs(cs[n]).max() + 1e-6)) for n in cs))
+            params = max(params, max(float(np.abs(gp[n] - cp[n]).max()) for n in cp))
+            ga, gb = runs["card"][2], c16[2]
+            cos = min(cos, float(ga @ gb / ga.norm() / gb.norm()))
+        say("bf16", f"one bf16 step on the card vs the CPU from the saved head: the largest "
+            f"loss part's difference over its limit {whole['card']:.3g} on the whole batch, "
+            f"{worst:.3g} on the {EST_CPU_ENVS}-env slices (at most 1 each); on crops "
+            f"{BF16_SHIFT} px off {whole['shifted']:.3g} and {shifted:.3g} (more than 1 each); "
+            f"the loss parts' bf16-to-f32 difference summed over the slices, card {own:.3g} "
+            f"against the CPU's {gap:.3g} (at least half of it); gradient cosine card vs CPU, "
+            f"least {cos:.5f} (at least 0.9); BatchNorm running statistics {stats:.3g} of "
+            f"their largest (limit 1e-2), parameters {params:.3g} (limit 2.1e-4, two "
+            f"learning rates and rounding), the largest over the slices")
+        check(whole["card"] <= 1 and worst <= 1 and stats <= 1e-2 and params <= 2.1e-4,
               "the bf16 training step differs between the card and the CPU")
+        check(whole["shifted"] > 1 and shifted > 1,
+              f"the card-vs-CPU limits on the bf16 loss parts pass a step on crops "
+              f"{BF16_SHIFT} px off: they would not see a fault of that size")
         check(own >= 0.5 * gap, "the card's bf16 training step sits too close to its own "
               "f32 step: it did not compute in bf16")
         check(cos >= 0.9, "the bf16 gradients on the card and the CPU point apart")
@@ -1297,6 +1403,302 @@ def generations(np, torch, dev, card):
     return total
 
 
+# ------------------------------------ phases 16-18: RL skill, URDF, real world --
+def manip_rl_overrides(save_dir):
+    """``manipulation=rl`` with the learn and policy blocks of
+    ``controller/rl.yaml`` as overrides (neither package's config tree has
+    a manipulation group carrying them)."""
+    from rgbmanip_tpu_torch.config.loader import load_group
+    rl = load_group("controller", "rl")
+    learn = dict(rl["learn"], num_transitions_per_env=MANIP_RL_T, save_dir=save_dir)
+    return ["manipulation.name=rl", f"manipulation.learn={json.dumps(learn)}",
+            f"manipulation.policy={json.dumps(rl['policy'])}"]
+
+
+def rl_manipulation(np, torch, dev, card):
+    """Phase 16: ``RLManipulation`` through ``train.main`` (``train=controller
+    train.train_controller=false train.train_manipulation=true``), one
+    iteration of 16 transitions at 8 envs on ``open_cabinet`` with a fresh
+    policy on the card; the same iteration on the CPU from the card's
+    initial weights and by its actions (the rollout equal, the update's
+    losses within 1e-3 relative, the learning rate equal, parameters within
+    the bounds of phase 12); then ``play`` on the card, through the skill's
+    ``plan_pathway`` in a ``train=test`` round of the gt stack. No kernel
+    of the port runs on this path (a 41-input MLP): the launch counters,
+    set to 0 before, stay 0."""
+    import tempfile
+
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.algo.ppo import PPO
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+
+    runs, plays = [], []
+
+    def keep_run(self, *a, **k):
+        runs.append((self, {n: v.detach().cpu().clone()
+                            for n, v in self.model.state_dict().items()}))
+    undo = [_capture(PPO, "run", keep_run),
+            _capture(PPO, "play", lambda self, *a, **k: plays.append(self))]
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        over = MANIP_RL + manip_rl_overrides(os.path.join(tmp, "ckpt")) + [
+            f"train.save_dir={tmp}", f"train.log_dir={tmp}"]
+        train_over = over + ["train=controller", "train.train_controller=false",
+                             "train.train_manipulation=true", "train.iterations_per_epoch=1"]
+        zero_k1_counters(k1)
+        try:
+            t0 = time.perf_counter()
+            check(T.main(train_over + ["device=cuda"]) is None, "train.main returned a result")
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            played = T.main(over + ["train=test", "controller=gt_pose", "train.total_round=8",
+                                    "device=cuda"])
+            play_s = time.perf_counter() - t0
+        finally:
+            for u in undo:
+                u()
+        launches = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize_clamp.launches)
+        check(len(runs) == 1, f"train.main ran {len(runs)} PPO trainers")
+        ppo, start = runs[0]
+        check(ppo.device.type == "cuda" and {p.device.type for p in ppo.model.parameters()}
+              == {"cuda"}, "the skill's policy did not train on the card")
+        check(ppo.obs_dim == 41 and ppo.act_dim == 8, f"the skill's spaces are obs "
+              f"{ppo.obs_dim}, action {ppo.act_dim}; open_cabinet gives 41 and 8")
+        check(os.path.exists(os.path.join(tmp, "ckpt", "model_1.ckpt")),
+              "train.main wrote no model_1.ckpt of the skill")
+        check(len(plays) >= 1 and all(p.device.type == "cuda" for p in plays)
+              and played["rounds"] == 8, "the skill's play did not run on the card")
+        check(launches == (0, 0), f"K1 launched {launches} times on a path without an "
+              f"estimator")
+        h = ppo.history[-1]
+        say("manip-rl", f"{card} | python -m rgbmanip_tpu_torch.train {' '.join(MANIP_RL)} "
+            f"manipulation.name=rl (learn and policy of controller/rl.yaml) train=controller "
+            f"train.train_controller=false train.train_manipulation=true "
+            f"train.iterations_per_epoch=1 device=cuda: obs {ppo.obs_dim}, action "
+            f"{ppo.act_dim}, {ppo.num_transitions} transitions x {ppo.num_envs} envs in "
+            f"{main_s:.1f} s incl. set-up; collect {h['collect_s']:.3f} s, learn "
+            f"{h['learn_s']:.3f} s; metrics (loss, surrogate, value loss, entropy, kl) "
+            f"{np.array2string(h['metrics'], precision=4)}, lr {ppo.lr:.3g}; then "
+            f"train=test (gt stack, the skill's greedy play): {len(plays)} plays of "
+            f"{ppo.num_transitions} steps, success {played['success_rate']:.2f}% over "
+            f"{played['rounds']} episodes (not gated: one iteration of a fresh policy), "
+            f"{play_s:.1f} s; K1 launches {launches}")
+
+        # the same iteration on the CPU, lock-stepped to the card's actions
+        cfg = load_config(train_over + ["device=cpu", f"manipulation.learn.save_dir="
+                                        f"{os.path.join(tmp, 'cpu')}"])
+        env = T.prepare_env(cfg["task"], cfg["dataset"], log=get_logger(), seed=cfg["seed"])
+        try:
+            manip = T.prepare_manipulation(env, cfg["manipulation"], get_logger(),
+                                           device=torch.device("cpu"))
+            cpu = manip.algo
+            cpu.model.load_state_dict(start)
+            actions = iter(ppo.storage.actions.copy())
+            cpu.action_source = lambda: next(actions)
+            t0 = time.perf_counter()
+            manip.learn(1)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            env.close()
+        gs, cs = ppo.storage, cpu.storage
+        same = all(np.array_equal(getattr(gs, k), getattr(cs, k))
+                   for k in ("obs", "states", "actions", "rewards", "dones"))
+        mu = float(np.abs(gs.mu - cs.mu).max())
+        val = float(max(np.abs(gs.values - cs.values).max(),
+                        np.abs(gs.logprobs - cs.logprobs).max()))
+        gm, cm = ppo.history[-1]["metrics"], cpu.history[-1]["metrics"]
+        rel = float((np.abs(gm - cm) / np.maximum(np.abs(cm), 1e-6)).max())
+        g = {n: p.detach().cpu() for n, p in ppo.model.named_parameters()}
+        c = dict(cpu.model.named_parameters())
+        actor = max((g[n] - c[n].detach()).abs().max().item() for n in c
+                    if not n.startswith("critic."))
+        critic = max((g[n] - c[n].detach()).abs().max().item() for n in c
+                     if n.startswith("critic."))
+        say("manip-rl", f"card vs CPU, the CPU from the card's initial weights and by its "
+            f"actions ({cpu_s:.1f} s on the CPU): observations, states, rewards and dones "
+            f"equal: {same}; max |mu diff| {mu:.3g} (limit 1e-5), values and log-probabilities "
+            f"{val:.3g} (limit 1e-4); the update's losses {rel:.3g} relative (limit 1e-3); "
+            f"lr equal: {ppo.lr == cpu.lr}; max |param diff| actor {actor:.3g} (limit 2e-5), "
+            f"critic {critic:.3g} (limit 2e-4)")
+        check(same and mu <= 1e-5 and val <= 1e-4, "the skill's rollouts differ between "
+              "the card and the CPU")
+        check(rel <= 1e-3 and ppo.lr == cpu.lr and actor <= 2e-5 and critic <= 2e-4,
+              "the skill's update differs between the card and the CPU")
+
+
+def urdf_fixtures(np, torch, dev, card):
+    """Phase 17: the gt stack, one round of 8, on each of the four URDF
+    fixture datasets through ``train.main`` on the card and on the CPU
+    (equal success and move distance); then one round of the flagship
+    evaluation on ``cabinet_urdf_fixture`` (``controller=rl``,
+    ``adapose_cabinet_fast``, the committed checkpoints, 8 envs) on the
+    card with the counters set to 0 just before and read just after (K1
+    twice per estimate), lock-stepped on the CPU as phase 11 runs it.
+    Returns K1's launches in the flagship round."""
+    import tempfile
+
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        rows = []
+        for kind, (task, manip) in FIXTURES.items():
+            over = [f"dataset={kind}_urdf_fixture", f"task={task}", f"manipulation={manip}",
+                    f"train.save_dir={tmp}", f"train.log_dir={tmp}"] + FIXTURE_GT
+            t0 = time.perf_counter()
+            res = {d: T.main(over + [f"device={d}"]) for d in ("cuda", "cpu")}
+            rows.append(f"{kind} {res['cuda']['success_rate']:.2f}% "
+                        f"({time.perf_counter() - t0:.1f} s both)")
+            check(res["cuda"] == res["cpu"] and res["cuda"]["rounds"] == 8,
+                  f"{kind}_urdf_fixture: the gt stack ends differently on the card "
+                  f"({res['cuda']}) and on the CPU ({res['cpu']})")
+    say("urdf", f"gt stack, one round of 8 on each URDF fixture dataset through train.main, "
+        f"card and CPU equal (success and move distance): " + ", ".join(rows))
+
+    fixture = [a if not a.startswith("dataset=") else "dataset=cabinet_urdf_fixture"
+               for a in FLAGSHIP]
+    cfg = load_config(fixture + ["device=cuda"])
+    N = int(cfg["task"]["num_envs"])
+    draws = []
+    zero_k1_counters(k1)
+    k5.row_gather.launches = 0
+    card_rec = eval_round(np, torch, T, cfg, dev, draws)
+    launches = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize_clamp.launches,
+                k5.row_gather.launches)
+    n_est = len(card_rec["calls"])
+    check(n_est >= 1 and launches == (2 * n_est, 0, 0),
+          f"launches (K1, K1 clamp, K5) {launches} in {n_est} estimates of the fixture round")
+    check(card_rec["param_devices"] == {"cuda"} and card_rec["devices"] == {"cuda"},
+          "the estimator or the policy is not on the card")
+    cpu_rec = eval_round(np, torch, T, load_config(fixture + ["device=cpu"]),
+                         torch.device("cpu"), draws, drive=card_rec)
+    check(len(cpu_rec["actions"]) == len(card_rec["actions"]) and all(
+        np.array_equal(a, b) and np.array_equal(ma, mb) for a, b, ma, mb in zip(
+            cpu_rec["frames"], card_rec["frames"], cpu_rec["masks"], card_rec["masks"])),
+        "the fixture round's frames differ between the card and the CPU")
+    adiff, bdiff, dup, fdiff = round_gaps(np, card_rec, cpu_rec, N)
+    res = card_rec["result"]
+    say("urdf", f"{card} | python -m rgbmanip_tpu_torch.train {' '.join(fixture)} device=cuda,"
+        f" one round: success {res['success_rate']:.2f}% (not gated: {res['rounds']} "
+        f"episodes), {card_rec['seconds']:.2f} s; launches (K1, K1 clamp, K5) {launches} "
+        f"({n_est} estimates); card vs CPU lock-step: frames equal, max |action diff| "
+        f"{adiff:.3g} (limit 1e-5), max |pred_bbox diff| {bdiff[~dup].max(initial=0.0):.3g} m "
+        f"on the {int((~dup).sum())} two-view estimates (limit 1e-3), fused {fdiff:.3g} m "
+        f"(limit 1e-3); success equal: {np.array_equal(cpu_rec['success'], card_rec['success'])}")
+    check(adiff <= 1e-5 and bdiff[~dup].max(initial=0.0) <= 1e-3 and fdiff <= 1e-3,
+          "the fixture round's estimates differ between the card and the CPU")
+    check(np.array_equal(cpu_rec["success"], card_rec["success"]),
+          "the fixture round ends differently on the card and on the CPU")
+    return launches[0]
+
+
+class FakeRobot:
+    """A robot driver that goes where it is sent."""
+
+    def __init__(self):
+        self.pose = [0.4, 0.0, 0.5, 0.0, 1.0, 0.0, 0.0]
+        self.gripper = 0.04
+
+    def hand_pose(self):
+        return self.pose
+
+    def move_to(self, pose7, duration=0.0):
+        self.pose = list(pose7)
+
+    def set_gripper(self, width):
+        self.gripper = width
+
+
+class FakeCamera:
+    """A camera driver that sees a textured 480x640 scene with a box whose
+    place in the frame follows the hand (a seeded texture, shifted)."""
+
+    def __init__(self, np, robot):
+        self.np, self.robot = np, robot
+        self.base = np.random.default_rng(18).uniform(0.1, 0.6, (H, W, 3)).astype(np.float32)
+
+    def capture(self):
+        np = self.np
+        dx = int(round(float(self.robot.pose[1]) * 400))
+        rgb = self.base.copy()
+        rgb[190:290, 270 + dx:370 + dx] = (0.9, 0.3, 0.1)
+        return rgb, np.full((H, W), 1.5, np.float32), np.asarray(REALWORLD_K)
+
+
+class FakeSegmenter:
+    def predict(self, rgb):
+        return rgb[..., 0] > 0.85
+
+
+def realworld_env(np, torch, dev, card):
+    """Phase 18: the real-world env (``envs/realworld``) with fake robot,
+    camera and segmenter drivers, and two estimates of the ``realworld``
+    generation at ``adapose_cabinet_fast``'s widths on seeded weights on
+    its 480x640 views (the second with an empty mask), each on the card
+    and on the CPU with the same draws: the world bbox within 1e-3 m, equal
+    valid flags, the empty mask's sentinel (every corner at 9 m or more).
+    The counters are set to 0 just before the card's two estimates and read
+    just after (K1 twice each). Returns K1's launches."""
+    from rgbmanip_tpu_torch.config.loader import load_group
+    from rgbmanip_tpu_torch.envs.realworld.base_realworld import BaseRealworldEnv
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import make_estimator
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.utils.transform import Pose
+
+    robot = FakeRobot()
+    env = BaseRealworldEnv(robot_driver=robot, camera_driver=FakeCamera(np, robot),
+                           segmenter=FakeSegmenter())
+    i1 = env.get_image()["camera0"]
+    env.cam_move_to(Pose([0.45, 0.15, 0.55], [0.0, 1.0, 0.0, 0.0]).to_7d()[None])
+    i2 = env.get_image()["camera0"]
+    check(i1["Color"].shape == (1, H, W, 3) and i1["Mask"].any() and i2["Mask"].any()
+          and not np.array_equal(i1["Mask"], i2["Mask"]), "the fake drivers gave no views")
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast",
+                     {"load": False, "checkpoint_path": ""})
+    S = int(cfg["img_size"])
+    ests = {d.type: make_estimator("realworld", cfg, device=d, seed=0)
+            for d in (dev, torch.device("cpu"))}
+    check(ests["cuda"].model.realworld_pts, "the realworld generation lacks its pose branch")
+    g = torch.Generator().manual_seed(18)
+    u = [torch.rand(1, S * S, generator=g) for _ in range(2)]
+    empty = np.zeros_like(i1["Mask"])
+    cases = {"views": i1["Mask"], "empty mask": empty}
+    args = {k: (i1["Intrinsic"], i1["Color"], m, i1["Extrinsic"], i2["Color"], i2["Mask"],
+                i2["Extrinsic"]) for k, m in cases.items()}
+    out = {}
+    zero_k1_counters(k1)
+    for k, a in args.items():
+        b, v, _ = ests["cuda"]._estimate(*(torch.from_numpy(np.asarray(x)).to(dev) for x in a),
+                                         *(x.to(dev) for x in u))
+        out[k] = (b.cpu().numpy(), v.cpu().numpy())
+    torch.cuda.synchronize()
+    launches = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize_clamp.launches)
+    check(launches == (4, 0), f"launches (K1, K1 clamp) {launches} in 2 estimates")
+    gaps = []
+    for k, a in args.items():
+        b, v, _ = ests["cpu"]._estimate(*(torch.from_numpy(np.asarray(x)) for x in a), *u)
+        gaps.append(float(np.abs(out[k][0] - b.numpy()).max()))
+        check(np.array_equal(out[k][1], v.numpy()) and gaps[-1] <= 1e-3,
+              f"realworld estimate ({k}): card and CPU disagree, max |bbox diff| {gaps[-1]:.3g}")
+    check(np.isfinite(out["views"][0]).all() and out["views"][1].all(),
+          "no valid estimate on the env's views")
+    check((out["empty mask"][0] >= 9.0).all(), "an empty mask did not give the sentinel")
+    inputs = [torch.from_numpy(np.asarray(x)).to(dev) for x in args["views"]]
+    wall = host_ms(torch, lambda: ests["cuda"].estimate_full(*inputs), reps=5)
+    say("realworld", f"{card} | BaseRealworldEnv (fake robot, camera and segmenter), "
+        f"make_estimator('realworld') at adapose_cabinet_fast's widths ({S} px) on seeded "
+        f"weights, 480x640 views: launches (K1, K1 clamp) {launches} in 2 estimates; card vs "
+        f"CPU max |bbox diff| {gaps[0]:.3g} m on the views, {gaps[1]:.3g} m with the empty "
+        f"mask (limit 1e-3), valid flags equal, the empty mask's bbox the sentinel "
+        f"(min corner coordinate {float(out['empty mask'][0].min()):.2f} m); estimate at B=1 "
+        f"{wall:.2f} ms wall on the card")
+    return launches[0]
+
+
 def k1_bf16_timing(torch, F, rgb, win, S, card):
     """Phase 15: K1's bf16 entry point's device time at the flagship bf16
     estimate's B=8 frames and windows, beside its bound (bf16 output), its
@@ -1384,17 +1786,18 @@ def k1_windows(torch, mask, S):
     return rmin.float(), cmin.float(), inv
 
 
-def k1_bound(torch, rmin, cmin, inv, S, out_bytes=4):
+def k1_bound(torch, rmin, cmin, inv, S, out_bytes=4, clamp=False):
     """Least time for K1 on these windows: each source pixel that a tap with
     a non-zero weight touches read once (12 B), each output value written
     once (``out_bytes``: 4 for f32, 2 for bf16), the windows read once;
-    against ~11 f32 operations per output value. Returns (ms, "bytes" or
-    "operations")."""
-    from rgbmanip_tpu_torch.ops.crop_resize import _hat_taps
+    against ~11 f32 operations per output value. With ``clamp`` the windows
+    are the clamping mode's (``inv`` is then the ratio) and so are the
+    taps. Returns (ms, "bytes" or "operations")."""
+    from rgbmanip_tpu_torch.ops.crop_resize import _clamp_taps, _hat_taps
     from rgbmanip_tpu_torch.scripts.perfutil import HBM_BYTES_PER_S
 
     def distinct(lo, inv_b, n):
-        i0, i1, w0, w1 = _hat_taps(lo, inv_b, S, n)
+        i0, i1, w0, w1 = (_clamp_taps if clamp else _hat_taps)(lo, inv_b, S, n)
         return int(torch.unique(torch.cat([i0[w0 > 0], i1[w1 > 0]])).numel())
 
     rmin, cmin, inv = rmin.cpu(), cmin.cpu(), inv.cpu()
@@ -1408,16 +1811,110 @@ def k1_bound(torch, rmin, cmin, inv, S, out_bytes=4):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def grid_for(torch, rmin, cmin, inv, S):
-    """grid_sample grid (align_corners=False) of the same source coords."""
+def grid_for(torch, rmin, cmin, inv, S, clamp=False):
+    """grid_sample grid (align_corners=False) of the same source coords;
+    with ``clamp`` the windows are the clamping mode's (``inv`` is the
+    ratio, divided by)."""
     ii = torch.arange(S, dtype=torch.float32, device=rmin.device)[None]
-    sy = rmin[:, None] + (ii + 0.5) * inv[:, None] - 0.5
-    sx = cmin[:, None] + (ii + 0.5) * inv[:, None] - 0.5
+    step = (ii + 0.5) / inv[:, None] if clamp else (ii + 0.5) * inv[:, None]
+    sy = rmin[:, None] + step - 0.5
+    sx = cmin[:, None] + step - 0.5
     gy = (sy + 0.5) / H * 2 - 1
     gx = (sx + 0.5) / W * 2 - 1
     B = rmin.shape[0]
     return torch.stack([gx[:, None, :].expand(B, S, S), gy[:, :, None].expand(B, S, S)],
                        dim=-1).contiguous()
+
+
+def zero_k1_counters(k1):
+    """Both border modes' launch counters, and their bf16 entry points', to 0."""
+    for fn in (k1.crop_resize_normalize, k1.crop_resize_normalize_clamp):
+        fn.launches = 0
+        fn.launches_bf16 = 0
+
+
+def k1_clamp_windows(torch, mask, S):
+    """The (rmin, cmin, ratio) windows prepare_model_input hands K1's
+    clamping mode (ratio = S / side, a true division)."""
+    from rgbmanip_tpu_torch.ops.preprocess import mask_bbox_batched, square_window_batched
+    y1, x1, y2, x2, _ = mask_bbox_batched(mask.float())
+    rmin, rmax, cmin, _ = square_window_batched(y1, x1, y2, x2, H, W)
+    h = (rmax - rmin).float()
+    return rmin.float(), cmin.float(), torch.full_like(h, S) / h
+
+
+def sweep_clamp_windows(torch, dev, S):
+    """(rmin, cmin, ratio) of every 80 px side from 40 to 440, centred, at
+    the middle of the top and left edges and at the four frame corners, and
+    the reversed window of an empty mask."""
+    wins = []
+    for side in range(40, 441, 80):
+        wins += [((H - side) // 2, (W - side) // 2, side), (0, (W - side) // 2, side),
+                 ((H - side) // 2, 0, side), (0, 0, side), (0, W - side, side),
+                 (H - side, 0, side), (H - side, W - side, side)]
+    wins.append((460, 540, -440))
+    w = torch.tensor(wins, dtype=torch.float32, device=dev)
+    return w[:, 0], w[:, 1], torch.full_like(w[:, 2], S) / w[:, 2]
+
+
+def k1_clamp_check(torch, k1, rgb, win, S, tag):
+    """K1's clamping mode against its plain version on the card: f32 and
+    bf16 bit for bit (the plain version's fused multiply-adds are rounded
+    once, as the kernel's). Returns the f32 max |error| (0)."""
+    out = k1.crop_resize_normalize_clamp(rgb, *win, S)
+    out16 = k1.crop_resize_normalize_clamp(rgb, *win, S, out_dtype=torch.bfloat16)
+    ref = k1.crop_resize_normalize_clamp_plain(rgb, *win, S)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and torch.isfinite(out).all().item(),
+          f"K1 clamp {tag}: bad output")
+    bad = int((out != ref).sum().item())
+    check(bad == 0, f"K1 clamp {tag} f32: {bad} values differ from the plain version, max "
+          f"|diff| {(out - ref).abs().max().item():.3g}")
+    check(out16.dtype == torch.bfloat16 and torch.equal(out16, ref.to(torch.bfloat16)),
+          f"K1 clamp {tag} bf16: differs from plain(...).to(bf16)")
+    return (out - ref).abs().max().item()
+
+
+def k1_clamp_timing(torch, F, rgb, win, S, card, flush):
+    """Phase 7: K1's clamping mode, f32 and bf16 entry points, at the
+    service loop's first B=8 frames and windows: device time beside its
+    byte bound, its plain version's and ``F.grid_sample``'s with
+    ``padding_mode="border"`` (which clamps the coordinate, not the taps:
+    the yardstick call, not the same function at the border), warm and
+    with the L2 flushed by ``flush`` before each launch (the trainer crops
+    frames it has not just read). Returns {dtype: ({"kernel", "plain",
+    "library": ms}, bound ms, bound_by)} of the warm calls."""
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+
+    grid = grid_for(torch, *win, S, clamp=True)
+    out = {}
+    for dt, nbytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+        calls = {
+            "kernel": lambda: k1.crop_resize_normalize_clamp(rgb, *win, S, out_dtype=dt),
+            "plain": lambda: k1.crop_resize_normalize_clamp_plain(rgb, *win, S, out_dtype=dt),
+            "library": lambda: F.grid_sample(rgb.permute(0, 3, 1, 2), grid, mode="bilinear",
+                                             padding_mode="border", align_corners=False),
+        }
+
+        def clamp_ms(times):
+            kern = {n: v for n, v in times["kernel"].items()
+                    if "crop_resize_normalize_kernel" in n}
+            check(len(kern) == 1, f"the profiler did not see K1's clamping kernel: "
+                  f"{sorted(times['kernel'])}")
+            return {"kernel": sum(kern.values()), "plain": sum(times["plain"].values()),
+                    "library": sum(times["library"].values())}
+        ms = clamp_ms({k: device_times(torch, fn) for k, fn in calls.items()})
+        cold = clamp_ms({k: cold_device_times(torch, fn, flush) for k, fn in calls.items()})
+        bound, bound_by = k1_bound(torch, *win, S, out_bytes=nbytes, clamp=True)
+        name = "f32" if dt == torch.float32 else "bf16"
+        for label, t in (("warm", ms), (f"L2 flushed before each launch "
+                                        f"({L2_FLUSH_BYTES / 2 ** 20:.0f} MiB written)", cold)):
+            say("time", f"{card} | K1 clamping mode {name} B={rgb.shape[0]} {H}x{W}->{S}, "
+                f"{label}, device time per call: kernel {t['kernel']:.4f} ms "
+                f"({bound / t['kernel'] * 100:.1f}% of the {bound:.4f} ms {bound_by} bound), "
+                f"plain {t['plain']:.4f} ms, grid_sample(border) {t['library']:.4f} ms")
+        out[name] = (ms, bound, bound_by)
+    return out
 
 
 def k1_check(torch, k1, rgb, win, S, tag):
@@ -1604,8 +2101,11 @@ def paper_path(np, torch, dev):
 
 def k5_timings(torch, dev, card):
     """Phase 10: K5's device time per call beside its bound, its plain
-    version's and ``index_select``'s, at the probe's shape in bf16.
-    Returns ({"kernel", "plain", "library": ms}, bound ms, bound_by)."""
+    version's and ``index_select``'s, at the probe's shape in bf16, warm
+    and with the L2 flushed before each launch (the 2.75 MB table stays in
+    the L2 between warm calls, so a warm call can beat the HBM bound).
+    Returns the L2-flushed ({"kernel", "plain", "library": ms}, bound ms,
+    bound_by)."""
     from rgbmanip_tpu_torch.ops import row_gather as k5
     from rgbmanip_tpu_torch.scripts import try_gather
     from rgbmanip_tpu_torch.scripts.perfutil import HBM_BYTES_PER_S
@@ -1619,21 +2119,27 @@ def k5_timings(torch, dev, card):
         "plain": lambda: k5.row_gather_plain(table, D),
         "library": lambda: try_gather.index_select_reference(table, D, flat_index),
     }
-    dev_ms = {k: device_times(torch, fn) for k, fn in calls.items()}
-    kern = {n: v for n, v in dev_ms["kernel"].items() if "row_gather_kernel" in n}
-    check(len(kern) == 1, f"the profiler did not see K5's kernel: {sorted(dev_ms['kernel'])}")
-    ms = {"kernel": sum(kern.values()), "plain": sum(dev_ms["plain"].values()),
-          "library": sum(dev_ms["library"].values())}
+    def k5_ms(dev_ms):
+        kern = {n: v for n, v in dev_ms["kernel"].items() if "row_gather_kernel" in n}
+        check(len(kern) == 1, f"the profiler did not see K5's kernel: {sorted(dev_ms['kernel'])}")
+        return {"kernel": sum(kern.values()), "plain": sum(dev_ms["plain"].values()),
+                "library": sum(dev_ms["library"].values())}
+    warm = k5_ms({k: device_times(torch, fn) for k, fn in calls.items()})
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    cold = k5_ms({k: cold_device_times(torch, fn, flush.zero_) for k, fn in calls.items()})
+    del flush
     bound_bytes, probe_bytes = try_gather.traffic(*shape, 2)
     bound, bound_by = bound_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
-    say("time", f"{card} | K5 (B, S, C, D) = {shape} bf16, device time per call: "
-        f"kernel {ms['kernel']:.4f} ms ({bound / ms['kernel'] * 100:.1f}% of the "
-        f"{bound:.4f} ms {bound_by} bound: table read once + output written once, "
-        f"{bound_bytes / 1e6:.1f} MB; {probe_bytes / ms['kernel'] / 1e6:.0f} GB/s eff "
-        f"in the JAX probe's counting, {probe_bytes / 1e6:.1f} MB), plain "
-        f"{ms['plain']:.4f} ms, index_select {ms['library']:.4f} ms (its int64 index "
-        f"{flat_index.numel() * 8 / 1e6:.1f} MB)")
-    return ms, bound, bound_by
+    for label, ms in (("warm", warm), (f"L2 flushed before each launch "
+                                       f"({L2_FLUSH_BYTES / 2 ** 20:.0f} MiB written)", cold)):
+        say("time", f"{card} | K5 (B, S, C, D) = {shape} bf16, {label}, device time per "
+            f"call: kernel {ms['kernel']:.4f} ms ({bound / ms['kernel'] * 100:.1f}% of the "
+            f"{bound:.4f} ms {bound_by} bound: table read once + output written once, "
+            f"{bound_bytes / 1e6:.1f} MB; {probe_bytes / ms['kernel'] / 1e6:.0f} GB/s eff "
+            f"in the JAX probe's counting, {probe_bytes / 1e6:.1f} MB), plain "
+            f"{ms['plain']:.4f} ms, index_select {ms['library']:.4f} ms (its int64 index "
+            f"{flat_index.numel() * 8 / 1e6:.1f} MB)")
+    return cold, bound, bound_by
 
 
 def regime_timings(card):
@@ -1739,6 +2245,22 @@ def run():
     say("k1", f"B={B_MAIN} with a reversed window (empty mask, side "
         f"{float(win[2][0]) * S:.0f} px): kernel vs plain max |err| f32 {err:.3g}, bf16 "
         f"within one ulp")
+    clamp_errs = []
+    for B in (B_MAIN, B_WIDE):
+        _, r1, m1, _, _, _, _ = pair(np, np.random.default_rng(30 + B), B)
+        m1[0] = False                  # an empty mask: a reversed window
+        win = k1_clamp_windows(torch, torch.from_numpy(m1).to(dev), S)
+        clamp_errs.append(k1_clamp_check(torch, k1, torch.from_numpy(r1).to(dev), win, S,
+                                         f"B={B}"))
+    sweep = sweep_clamp_windows(torch, dev, S)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rgb = torch.rand(sweep[0].shape[0], H, W, 3, generator=g, device=dev)
+    clamp_errs.append(k1_clamp_check(torch, k1, rgb, sweep, S, "window sweep"))
+    say("k1", f"clamping mode (the estimator trainer's crop): kernel equals plain bit for bit "
+        f"in f32 and bf16 at B={B_MAIN} and B={B_WIDE} on the synthetic views' windows "
+        f"(frame corners and a reversed window included) and on {sweep[0].shape[0]} swept "
+        f"windows (sides 40-440 px centred, at the top and left edges and at the four "
+        f"corners)")
     k5_errs = []
     probe_shape = try_gather.DEFAULT_SHAPE
     for shape, dtype in ((probe_shape, "bfloat16"), (K5_WRAP_SHAPE, "bfloat16"),
@@ -1865,6 +2387,10 @@ def run():
                 f"of the bound), plain {cold['plain']:.4f} ms, grid_sample "
                 f"{cold['library']:.4f} ms")
         rows.append((B, ms, bound, bound_by, err))
+    clamp_rows = k1_clamp_timing(
+        torch, F, torch.from_numpy(step_inputs[0][1]).to(dev),
+        k1_clamp_windows(torch, torch.from_numpy(step_inputs[0][2]).to(dev), S), S, card,
+        flush_buf.zero_)
     del flush_buf
 
     for B in (B_MAIN, B_WIDE):
@@ -1919,14 +2445,23 @@ def run():
     gen_launches = generations(np, torch, dev, card)
     k1_16_ms, k1_16_bound, k1_16_by = k1_bf16_timing(torch, F, t_rgb, t_win, t_S, card)
 
+    # 16. RLManipulation: PPO on the joint-space actions ------------------------
+    rl_manipulation(np, torch, dev, card)
+
+    # 17. the URDF fixture datasets ---------------------------------------------
+    urdf_launches = urdf_fixtures(np, torch, dev, card)
+
+    # 18. the real-world env ------------------------------------------------------
+    realworld_launches = realworld_env(np, torch, dev, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
         "route": "cuda",
         "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
         "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
-        "launches": (eval_launches["crop_resize_normalize"] + ppo_launches + est_launches
-                     + heur_launches + inf_launches + bf16_train_launches + gen_launches),
+        "launches": (eval_launches["crop_resize_normalize"] + ppo_launches + heur_launches
+                     + inf_launches + gen_launches + urdf_launches + realworld_launches),
         "max_abs_err": max(err, eval_err, heur_err),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
@@ -1945,7 +2480,21 @@ def run():
         "bound_ms": k1_16_bound,
         "bound_by": k1_16_by,
         "library_ms": k1_16_ms["library"],
-    }, {
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
+        "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
+        "launches": n,
+        "max_abs_err": max(clamp_errs),
+        "ms": clamp_rows[dt][0]["kernel"],
+        "plain_ms": clamp_rows[dt][0]["plain"],
+        "bound_ms": clamp_rows[dt][1],
+        "bound_by": clamp_rows[dt][2],
+        "library_ms": clamp_rows[dt][0]["library"],
+    } for name, dt, n in (("crop_resize_normalize_clamp", "f32",
+                           est_launches + bf16_train_launches),
+                          ("crop_resize_normalize_clamp_bf16", "bf16", 0))] + [{
         "name": "row_gather",
         "route": "cuda",
         "source": "rgbmanip_tpu_torch/csrc/row_gather.cu",

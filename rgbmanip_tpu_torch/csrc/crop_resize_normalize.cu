@@ -57,6 +57,26 @@
 // then columns; the division by std is exact (see `normalise`). The f32
 // output then equals the plain PyTorch version bit for bit on a finite
 // frame.
+//
+// The clamping border mode (template parameter kClamp; entry points
+// crop_resize_normalize_clamp_*) computes instead what the JAX package's
+// portable fallback computes (rgbmanip_tpu/ops/preprocess.py:
+// prepare_model_input without Pallas, over bilinear_sample_batched), the
+// crop of every training batch of its estimator trainer, which prepares
+// batches on the CPU backend. Per output coordinate, from (rmin, cmin,
+// ratio = S / side):
+//   src = (lo + (i + 0.5) / ratio) - 0.5, f = floor(src), w = src - f,
+//   taps i0 = clip(f, 0, n - 1), i1 = min(i0 + 1, n - 1), weights 1 - w, w
+// (from the unclamped floor: a tap row below 0 mixes rows 0 and 1, not row
+// 0 alone), then the four-term sum and (v - mean) * (1 / std). The rounding
+// is XLA's on the CPU, found by probing its compiled fallback: each
+// division correctly rounded, the sum
+//   fma(g00 (1-wy), 1-wx, (g01 (1-wy)) wx), + g10 wy (1-wx), + g11 wy wx
+// as a chain of fused multiply-adds, and the division by the constant std
+// as a product with its f32 reciprocal. The same band structure serves
+// it: the vertical pass stores the two source rows already multiplied by
+// their row weights (two buffers per band row), the horizontal pass forms
+// the chain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,13 +103,16 @@ struct ColTap {
   float w0, w1;
 };
 
-__device__ __forceinline__ float src_coord(float lo, float inv_ratio, int i) {
-  // src = fma(i + 0.5, inv_ratio, lo) - 0.5
-  return __fsub_rn(__fmaf_rn(__fadd_rn(static_cast<float>(i), 0.5f), inv_ratio, lo), 0.5f);
+// `scale` is inv_ratio in the renormalising mode and ratio in the clamping one
+template <bool kClamp>
+__device__ __forceinline__ float src_coord(float lo, float scale, int i) {
+  const float a = __fadd_rn(static_cast<float>(i), 0.5f);
+  if (kClamp) return __fsub_rn(__fadd_rn(lo, __fdiv_rn(a, scale)), 0.5f);  // (lo + a / ratio) - 0.5
+  return __fsub_rn(__fmaf_rn(a, scale, lo), 0.5f);  // fma(a, inv_ratio, lo) - 0.5
 }
 
 __device__ __forceinline__ Taps hat_taps(float lo, float inv_ratio, int i, int n) {
-  const float src = src_coord(lo, inv_ratio, i);
+  const float src = src_coord<false>(lo, inv_ratio, i);
   const float f0 = floorf(src);
   const float f1 = __fadd_rn(f0, 1.0f);
   float w0 = fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(src, f0))));
@@ -107,17 +130,39 @@ __device__ __forceinline__ Taps hat_taps(float lo, float inv_ratio, int i, int n
   return t;
 }
 
+// The clamping mode's taps: from the unclamped floor f, i0 = clip(f),
+// i1 = min(i0 + 1, n - 1), weights (1 - w, w) with w = src - f.
+__device__ __forceinline__ Taps clamp_taps(float lo, float ratio, int i, int n) {
+  const float src = src_coord<true>(lo, ratio, i);
+  const float f = floorf(src);
+  const float w = __fsub_rn(src, f);
+  Taps t;
+  t.i0 = static_cast<int>(fminf(fmaxf(f, 0.0f), static_cast<float>(n - 1)));
+  t.i1 = min(t.i0 + 1, n - 1);
+  t.w0 = __fsub_rn(1.0f, w);
+  t.w1 = w;
+  return t;
+}
+
+template <bool kClamp>
+__device__ __forceinline__ Taps taps_of(float lo, float scale, int i, int n) {
+  return kClamp ? clamp_taps(lo, scale, i, n) : hat_taps(lo, scale, i, n);
+}
+
 // [first, last]: the source indices, clamped into [0, n - 1], between the
 // taps of output 0 and output S - 1. src is monotonic in i (each step rounds
 // monotonically), so every tap inside the frame lies in this span, whichever
-// way the window runs.
-__device__ __forceinline__ void tap_span(float lo, float inv_ratio, int S, int n,
+// way the window runs. (The clamping mode's second tap of a floor below 0 is
+// index 1, hence its floor of 0 under the last tap's floor.)
+template <bool kClamp>
+__device__ __forceinline__ void tap_span(float lo, float scale, int S, int n,
                                          int& first, int& last) {
-  const float a = floorf(src_coord(lo, inv_ratio, 0));
-  const float b = floorf(src_coord(lo, inv_ratio, S - 1));
+  const float a = floorf(src_coord<kClamp>(lo, scale, 0));
+  const float b = floorf(src_coord<kClamp>(lo, scale, S - 1));
   const float top = static_cast<float>(n - 1);
+  const float hi = kClamp ? fmaxf(fmaxf(a, b), 0.0f) : fmaxf(a, b);
   first = static_cast<int>(fminf(fmaxf(fminf(a, b), 0.0f), top));
-  last = static_cast<int>(fminf(fmaxf(__fadd_rn(fmaxf(a, b), 1.0f), 0.0f), top));
+  last = static_cast<int>(fminf(fmaxf(__fadd_rn(hi, 1.0f), 0.0f), top));
 }
 
 // rows first: the vertical half of the TPU kernel's (Wy @ img) @ Wx^T
@@ -128,6 +173,19 @@ __device__ __forceinline__ float mix(float w0, float a, float w1, float b) {
 __device__ __forceinline__ float4 mix4(const Taps& t, const float4& a, const float4& b) {
   return make_float4(mix(t.w0, a.x, t.w1, b.x), mix(t.w0, a.y, t.w1, b.y),
                      mix(t.w0, a.z, t.w1, b.z), mix(t.w0, a.w, t.w1, b.w));
+}
+
+__device__ __forceinline__ float4 scale4(float w, const float4& a) {
+  return make_float4(__fmul_rn(a.x, w), __fmul_rn(a.y, w), __fmul_rn(a.z, w),
+                     __fmul_rn(a.w, w));
+}
+
+// the clamping mode's four-term sum from the weighted rows a = g(y0) (1 - wy)
+// and b = g(y1) wy: fma(a0, 1-wx, a1 wx), then + b0 (1-wx), then + b1 wx
+__device__ __forceinline__ float chain(float w0, float w1, float a0, float a1, float b0,
+                                       float b1) {
+  const float v = __fmaf_rn(a0, w0, __fmul_rn(a1, w1));
+  return __fmaf_rn(b1, w1, __fmaf_rn(b0, w0, v));
 }
 
 // (v - mean) / std, the quotient correctly rounded: q = x * (1/std) and one
@@ -143,6 +201,15 @@ __device__ __forceinline__ float normalise(float v) {
   const float x = __fsub_rn(v, kMean);
   const float q = __fmul_rn(x, kInv);
   return __fmaf_rn(__fmaf_rn(-q, kStd, x), kInv, q);
+}
+
+// The clamping mode's (v - mean) * f32(1 / f32(std)), as XLA rewrites the
+// division by a constant (the reciprocals' bits, hex, from numpy's f32).
+template <int C>
+__device__ __forceinline__ float normalise_clamp(float v) {
+  constexpr float kMean = C == 0 ? 0.485f : (C == 1 ? 0.456f : 0.406f);
+  constexpr float kInv = C == 0 ? 0x1.1779dap+2f : (C == 1 ? 0x1.1db6dap+2f : 0x1.1c71c8p+2f);
+  return __fmul_rn(__fsub_rn(v, kMean), kInv);
 }
 
 template <typename OutT>
@@ -176,15 +243,21 @@ __host__ __device__ __forceinline__ int row_buffer_floats(int W) {
   return (3 * W + 6 + 3) / 4 * 4;
 }
 
-template <typename OutT>
+// Row buffers per band row: the mixed row, or the clamping mode's two
+// weighted rows.
+template <bool kClamp>
+__host__ __device__ constexpr int buffers_per_row() { return kClamp ? 2 : 1; }
+
+template <typename OutT, bool kClamp>
 __global__ void __launch_bounds__(kThreads)
 crop_resize_normalize_kernel(const float* __restrict__ rgb,
                              const float* __restrict__ win,
                              OutT* __restrict__ out, int H, int W, int S) {
   extern __shared__ float4 smem[];
+  constexpr int kBuf = buffers_per_row<kClamp>();
   const int stride = row_buffer_floats(W);
-  float* col = reinterpret_cast<float*>(smem);                     // kBand row buffers
-  ColTap* taps = reinterpret_cast<ColTap*>(col + kBand * stride);   // kPix x G column taps
+  float* col = reinterpret_cast<float*>(smem);                            // kBand x kBuf row buffers
+  ColTap* taps = reinterpret_cast<ColTap*>(col + kBand * kBuf * stride);   // kPix x G column taps
   const int G = (S + kPix - 1) / kPix;                               // pixel groups per row
 
   const int b = blockIdx.y;
@@ -192,10 +265,10 @@ crop_resize_normalize_kernel(const float* __restrict__ rgb,
   const int rows = min(kBand, S - y_first);
   const float rmin = __ldg(win + 3 * b + 0);
   const float cmin = __ldg(win + 3 * b + 1);
-  const float inv_ratio = __ldg(win + 3 * b + 2);
+  const float scale = __ldg(win + 3 * b + 2);  // inv_ratio, or the clamping mode's ratio
 
   int lo, hi;
-  tap_span(cmin, inv_ratio, S, W, lo, hi);
+  tap_span<kClamp>(cmin, scale, S, W, lo, hi);
   const int W3 = 3 * W;
   const bool vec = (W3 & 3) == 0;
   // the floats [a0, a1) of a source row that the vertical pass reads
@@ -211,11 +284,13 @@ crop_resize_normalize_kernel(const float* __restrict__ rgb,
   const int r = threadIdx.x / kRowThreads;
   const int lane = threadIdx.x % kRowThreads;
   const bool active = r < rows;  // uniform across each warp
-  const Taps ty = hat_taps(rmin, inv_ratio, y_first + r, H);
+  const Taps ty = taps_of<kClamp>(rmin, scale, y_first + r, H);
   const int n4 = vec ? (a1 - a0) >> 2 : 0;
   const float4* row0 = reinterpret_cast<const float4*>(img + ty.i0 * W3 + a0);
   const float4* row1 = reinterpret_cast<const float4*>(img + ty.i1 * W3 + a0);
-  float4* dst = reinterpret_cast<float4*>(col + r * stride);
+  float* dst_row = col + kBuf * r * stride;
+  float4* dst = reinterpret_cast<float4*>(dst_row);
+  float4* dst1 = reinterpret_cast<float4*>(dst_row + stride);  // the clamping mode's second row
   float4 p[kUnroll], q[kUnroll];
   auto fetch = [&](int j0) {
 #pragma unroll
@@ -231,14 +306,21 @@ crop_resize_normalize_kernel(const float* __restrict__ rgb,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + kRowThreads * u;
-      if (active && j < n4) dst[j] = mix4(ty, p[u], q[u]);
+      if (active && j < n4) {
+        if (kClamp) {
+          dst[j] = scale4(ty.w0, p[u]);
+          dst1[j] = scale4(ty.w1, q[u]);
+        } else {
+          dst[j] = mix4(ty, p[u], q[u]);
+        }
+      }
     }
   };
   fetch(lane);
   // the column taps while the first loads are in flight; pixel x of group
   // g sits at (x % kPix) * G + g, so a warp's tap reads are contiguous
   for (int x = threadIdx.x; x < S; x += kThreads) {
-    const Taps t = hat_taps(cmin, inv_ratio, x, W);
+    const Taps t = taps_of<kClamp>(cmin, scale, x, W);
     ColTap c;
     c.q0 = 3 * (min(max(t.i0, lo), hi) - lo) + shift;
     c.q1 = 3 * (min(max(t.i1, lo), hi) - lo) + shift;
@@ -253,8 +335,14 @@ crop_resize_normalize_kernel(const float* __restrict__ rgb,
   }
   if (!vec && active) {  // rows of W * 3 floats are not all 16-byte aligned: scalar loads
     for (int j = lane; j < a1 - a0; j += kRowThreads) {
-      col[r * stride + j] = mix(ty.w0, __ldg(img + ty.i0 * W3 + a0 + j), ty.w1,
-                                __ldg(img + ty.i1 * W3 + a0 + j));
+      const float g0 = __ldg(img + ty.i0 * W3 + a0 + j);
+      const float g1 = __ldg(img + ty.i1 * W3 + a0 + j);
+      if (kClamp) {
+        dst_row[j] = __fmul_rn(g0, ty.w0);
+        dst_row[stride + j] = __fmul_rn(g1, ty.w1);
+      } else {
+        dst_row[j] = mix(ty.w0, g0, ty.w1, g1);
+      }
     }
   }
   __syncthreads();
@@ -266,7 +354,7 @@ crop_resize_normalize_kernel(const float* __restrict__ rgb,
   for (int k = threadIdx.x; k < rows * G; k += kThreads) {
     const int row = k / G;
     const int g = k - row * G;
-    const float* cr = col + row * stride;
+    const float* cr = col + kBuf * row * stride;
     const int np = min(kPix, S - g * kPix);
     float v[3 * kPix];
 #pragma unroll
@@ -275,10 +363,18 @@ crop_resize_normalize_kernel(const float* __restrict__ rgb,
         const ColTap t = taps[i * G + g];
         const float* c0 = cr + t.q0;
         const float* c1 = cr + t.q1;
-        // then columns
-        v[3 * i + 0] = normalise<0>(mix(t.w0, c0[0], t.w1, c1[0]));
-        v[3 * i + 1] = normalise<1>(mix(t.w0, c0[1], t.w1, c1[1]));
-        v[3 * i + 2] = normalise<2>(mix(t.w0, c0[2], t.w1, c1[2]));
+        if (kClamp) {
+          const float* d0 = c0 + stride;  // the second weighted row
+          const float* d1 = c1 + stride;
+          v[3 * i + 0] = normalise_clamp<0>(chain(t.w0, t.w1, c0[0], c1[0], d0[0], d1[0]));
+          v[3 * i + 1] = normalise_clamp<1>(chain(t.w0, t.w1, c0[1], c1[1], d0[1], d1[1]));
+          v[3 * i + 2] = normalise_clamp<2>(chain(t.w0, t.w1, c0[2], c1[2], d0[2], d1[2]));
+        } else {
+          // then columns
+          v[3 * i + 0] = normalise<0>(mix(t.w0, c0[0], t.w1, c1[0]));
+          v[3 * i + 1] = normalise<1>(mix(t.w0, c0[1], t.w1, c1[1]));
+          v[3 * i + 2] = normalise<2>(mix(t.w0, c0[2], t.w1, c1[2]));
+        }
       }
     }
     OutT* o = out + (static_cast<size_t>(b) * S + y_first + row) * S * 3 + g * kPix * 3;
@@ -296,21 +392,21 @@ crop_resize_normalize_kernel(const float* __restrict__ rgb,
   }
 }
 
-template <typename OutT>
+template <typename OutT, bool kClamp>
 int launch(const void* rgb, const void* win, void* out, int B, int H, int W,
            int S, void* stream) {
   if (B == 0 || S == 0) return 0;
-  const size_t smem = sizeof(float) * (kBand * row_buffer_floats(W)) +
+  const size_t smem = sizeof(float) * (kBand * buffers_per_row<kClamp>() * row_buffer_floats(W)) +
                       sizeof(ColTap) * ((S + kPix - 1) / kPix) * kPix;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(crop_resize_normalize_kernel<OutT>,
+    const cudaError_t err = cudaFuncSetAttribute(crop_resize_normalize_kernel<OutT, kClamp>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((S + kBand - 1) / kBand, B);
-  crop_resize_normalize_kernel<OutT><<<grid, kThreads, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(
+  crop_resize_normalize_kernel<OutT, kClamp><<<grid, kThreads, smem,
+                                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rgb), static_cast<const float*>(win),
       static_cast<OutT*>(out), H, W, S);
   return static_cast<int>(cudaGetLastError());
@@ -319,17 +415,30 @@ int launch(const void* rgb, const void* win, void* out, int B, int H, int W,
 }  // namespace
 
 // Plain C entry points. rgb (B, H, W, 3) f32 contiguous, 16-byte aligned;
-// win (B, 3) f32 rows (rmin, cmin, 1/ratio); out (B, S, S, 3) contiguous,
-// 16-byte aligned. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 on success).
+// win (B, 3) f32 rows (rmin, cmin, 1/ratio), for the clamping mode (rmin,
+// cmin, ratio); out (B, S, S, 3) contiguous, 16-byte aligned. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() (0 on
+// success).
 extern "C" int crop_resize_normalize_f32(const void* rgb, const void* win,
                                          void* out, int B, int H, int W, int S,
                                          void* stream) {
-  return launch<float>(rgb, win, out, B, H, W, S, stream);
+  return launch<float, false>(rgb, win, out, B, H, W, S, stream);
 }
 
 extern "C" int crop_resize_normalize_bf16(const void* rgb, const void* win,
                                           void* out, int B, int H, int W, int S,
                                           void* stream) {
-  return launch<__nv_bfloat16>(rgb, win, out, B, H, W, S, stream);
+  return launch<__nv_bfloat16, false>(rgb, win, out, B, H, W, S, stream);
+}
+
+extern "C" int crop_resize_normalize_clamp_f32(const void* rgb, const void* win,
+                                               void* out, int B, int H, int W, int S,
+                                               void* stream) {
+  return launch<float, true>(rgb, win, out, B, H, W, S, stream);
+}
+
+extern "C" int crop_resize_normalize_clamp_bf16(const void* rgb, const void* win,
+                                                void* out, int B, int H, int W, int S,
+                                                void* stream) {
+  return launch<__nv_bfloat16, true>(rgb, win, out, B, H, W, S, stream);
 }

@@ -11,8 +11,8 @@ scene generation, rewards, success, gt bboxes) mirror
 ``env/sapien_envs/base_manipulation.py`` + ``open_cabinet.py`` + ``open_pot.py``.
 
 This is the port's copy of ``rgbmanip_tpu/envs/vec_env.py`` with every task
-env (cabinet and drawer, pot and mug, and the close variants); the URDF
-fixture datasets are not ported yet (ROADMAP.md, Queue 1).
+env (cabinet and drawer, pot and mug, and the close variants), on the
+procedural objects and on URDF objects (``assets/urdf_object.py``).
 """
 
 from __future__ import annotations
@@ -151,11 +151,20 @@ class VecManipulationEnv:
         suffix, e.g. '44781_link_0' -> 'link_0' — the reference's convention,
         cfg/dataset/cabinet_train.yaml)."""
         if entry_or_cfg.get("path"):
-            raise NotImplementedError(
-                f"URDF dataset entry {entry_or_cfg.get('name', '')!r}: the URDF "
-                f"fixture datasets (assets/urdf*.py, mesh.py, objmesh.py) are not "
-                f"ported yet (ROADMAP.md, Queue 1: 'the URDF fixture datasets'); "
-                f"the procedural datasets run")
+            import os
+            from ..assets.urdf_object import load_object_urdf
+            path = entry_or_cfg["path"]
+            if self.dataset_root and not os.path.isabs(path):
+                path = os.path.join(self.dataset_root, path)
+            active = entry_or_cfg.get("active_link")
+            if not active:
+                name = entry_or_cfg.get("name", "")
+                if "_link_" in name:
+                    active = "link_" + name.rsplit("_link_", 1)[1]
+                else:
+                    raise ValueError(
+                        f"urdf dataset entry {name!r} needs active_link")
+            return load_object_urdf(path, active, category=self.obj_category)
         return procedural.generate(entry_or_cfg["category"],
                                    entry_or_cfg["seed"])
 

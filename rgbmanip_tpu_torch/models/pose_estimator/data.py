@@ -213,10 +213,14 @@ class SimViewSampler:
         B = self.env.num_envs
         rand1, rand2 = self._draws(B)
         K = self._to_device(img1["Intrinsic"], torch.float32)
+        # the JAX package's sampler prepares every batch on its CPU backend,
+        # where the crop clamps at the frame border: K1's clamping mode
         c1, choose1, pts2d1, newK1, ok1 = prepare_model_input(
-            img1["Color"].float(), img1["Mask"], K, rand1, self.img_size, self.n_pts)
+            img1["Color"].float(), img1["Mask"], K, rand1, self.img_size, self.n_pts,
+            border="clamp")
         c2, choose2, pts2d2, newK2, ok2 = prepare_model_input(
-            img2["Color"].float(), img2["Mask"], K, rand2, self.img_size, self.n_pts)
+            img2["Color"].float(), img2["Mask"], K, rand2, self.img_size, self.n_pts,
+            border="clamp")
         ok = (ok1 & ok2).cpu().numpy()
         if not ok.any():
             return None

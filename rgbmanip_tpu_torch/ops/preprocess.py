@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .crop_resize import crop_resize_normalize
+from .crop_resize import crop_resize_normalize, crop_resize_normalize_clamp
 from .gather import flat_gather
 
 
@@ -55,13 +55,25 @@ def _uniform(rand, shape, device):
     return u
 
 
+BORDERS = ("renormalise", "clamp")
+
+
 def prepare_model_input(rgb, mask, K, rand, out_size: int = 224,
-                        n_pts: int = 1024, out_dtype=torch.float32):
+                        n_pts: int = 1024, out_dtype=torch.float32,
+                        border: str = "renormalise"):
     """rgb (B, H, W, 3) in [0, 1], mask (B, H, W) bool, K (B, 3, 3); ``rand``
     a torch.Generator or the (B, S*S) uniform draws. Returns (crop
     (B, S, S, 3) normalised in ``out_dtype`` (f32 or bf16: K1's two entry
     points), choose (B, n) int64, pts2d (B, n, 2), newK (B, 3, 3), valid
-    (B,))."""
+    (B,)).
+
+    ``border`` is the crop's rule at the frame border, as the JAX package
+    picks it by backend: "renormalise" (K1, the Pallas kernel's rule, which
+    the JAX estimate runs on the TPU) or "clamp" (K1's clamping mode, the
+    rule of the JAX package's CPU fallback, where its estimator trainer
+    prepares every batch)."""
+    if border not in BORDERS:
+        raise ValueError(f"border must be one of {BORDERS}, got {border!r}")
     rgb = rgb.float().contiguous()
     maskf = mask.float()
     K = K.float()
@@ -75,12 +87,16 @@ def prepare_model_input(rgb, mask, K, rand, out_size: int = 224,
     # a true division: `S / h` on a tensor is reciprocal(h) * S in torch
     ratio = torch.full_like(h, S) / h                              # (B,)
 
-    # The JAX wrapper hands the kernel 1 / ratio = 1 / (S / h); inlined here,
-    # XLA rewrites that as h * f32(1 / S), and that is the f32 value the main
-    # path's kernel multiplied by.
-    inv_ratio = h * torch.tensor(1.0 / S, dtype=torch.float32, device=dev)
-    crop = crop_resize_normalize(rgb, rmin.float(), cmin.float(), inv_ratio,
-                                 out_size=S, out_dtype=out_dtype)
+    if border == "clamp":
+        crop = crop_resize_normalize_clamp(rgb, rmin.float(), cmin.float(), ratio,
+                                           out_size=S, out_dtype=out_dtype)
+    else:
+        # The JAX wrapper hands the kernel 1 / ratio = 1 / (S / h); inlined
+        # here, XLA rewrites that as h * f32(1 / S), and that is the f32
+        # value the main path's kernel multiplied by.
+        inv_ratio = h * torch.tensor(1.0 / S, dtype=torch.float32, device=dev)
+        crop = crop_resize_normalize(rgb, rmin.float(), cmin.float(), inv_ratio,
+                                     out_size=S, out_dtype=out_dtype)
 
     # nearest crop-resize of the mask (truncation toward zero, then clip)
     ii = torch.arange(S, dtype=torch.float32, device=dev)[None]    # (1, S)

@@ -9,7 +9,14 @@ on the ground-truth estimator, ``open_cabinet``, ``train=test``:
 
 Every task runs: ``open_cabinet``/``open_drawer`` (and their ``_45``,
 ``_30`` and ``_no_dr`` variants), ``open_pot``, ``pick_mug``,
-``close_cabinet`` and ``close_drawer``. Four run modes:
+``close_cabinet`` and ``close_drawer``, on the procedural datasets and on
+the URDF fixtures (``dataset=<cabinet|drawer|pot|mug>_urdf_fixture``).
+``task=real_world`` builds the real-robot env without drivers, so its
+first move or image raises (``envs/realworld``). ``manipulation=rl`` is the
+PPO skill on the joint-space actions (``models/manipulation/rl.py``, with
+its ``learn`` and ``policy`` blocks passed as overrides), trained by
+``train=controller train.train_controller=false
+train.train_manipulation=true``. Four run modes:
 - ``train=test``: evaluate ``train.total_round`` episodes and report the
   success rate and the move distance, written to ``result.json``;
 - ``train=controller``: PPO-train the camera-scheduling policy
@@ -53,10 +60,6 @@ from . import resolve_device
 from .config.loader import ConfigError, load_config, save_config
 from .utils.logger import MetricsWriter, get_logger
 
-_MANIP_RL = "(ROADMAP.md, Queue 1: 'RLManipulation')"
-_REALWORLD = "(ROADMAP.md, Queue 1: 'the real-world env')"
-
-
 def prepare_env(task_cfg, data_cfg, headless=True, viewerless=False, log=None, seed=0):
     """Construct the batched task env (reference train.py:45-149)."""
     from .envs.vec_env import CloseCabinetEnv, OpenCabinetEnv, OpenPotEnv
@@ -70,12 +73,14 @@ def prepare_env(task_cfg, data_cfg, headless=True, viewerless=False, log=None, s
     if name in ("close_cabinet", "close_drawer"):
         return CloseCabinetEnv(data_cfg, task_cfg, **kw)
     if name == "real_world":
-        raise NotImplementedError(f"task {name!r} is not ported yet {_REALWORLD}")
+        # built without drivers: the first image or move raises
+        from .envs.realworld.base_realworld import BaseRealworldEnv
+        return BaseRealworldEnv()
     raise NotImplementedError(f"task {name!r}")
 
 
-def prepare_manipulation(env, manip_cfg, log, train_cfg=None):
-    """(reference train.py:151-178)"""
+def prepare_manipulation(env, manip_cfg, log, train_cfg=None, device=None):
+    """(reference train.py:151-178); an RL skill's policy runs on ``device``."""
     from .models.manipulation.close_cabinet import (
         CloseCabinetManipulation, CloseDrawerManipulation)
     from .models.manipulation.open_cabinet import OpenCabinetManipulation
@@ -93,7 +98,8 @@ def prepare_manipulation(env, manip_cfg, log, train_cfg=None):
     }
     name = manip_cfg["name"]
     if name == "rl":
-        raise NotImplementedError(f"manipulation {name!r} is not ported yet {_MANIP_RL}")
+        from .models.manipulation.rl import RLManipulation
+        return RLManipulation(env, manip_cfg, log, device=device)
     if name not in table:
         raise NotImplementedError(f"manipulation {name!r}")
     return table[name](env, manip_cfg, log)
@@ -190,14 +196,14 @@ def collect(env, controller, cfg, log):
 
 
 def train(env, controller, cfg, log):
-    """PPO training of the camera-scheduling controller (reference
-    train.py:396-410)."""
+    """PPO training of the camera-scheduling controller and, with
+    ``train.train_manipulation``, of an RL skill (``manipulation=rl``)
+    (reference train.py:396-410)."""
     iters = cfg["train"].get("iterations_per_epoch", 600)
-    if cfg["train"].get("train_manipulation", False):
-        raise NotImplementedError(f"train.train_manipulation (RLManipulation, "
-                                  f"manipulation=rl) is not ported yet {_MANIP_RL}")
     if cfg["train"].get("train_controller", False):
         controller.train_controller(iters)
+    if cfg["train"].get("train_manipulation", False):
+        controller.train_manipulation(iters)
     log_phases(env, log)
 
 
@@ -360,7 +366,7 @@ def main(argv=None):
 
     env = prepare_env(cfg["task"], cfg["dataset"], cfg.get("headless", True),
                       cfg.get("viewerless", False), log, seed=cfg.get("seed", 0))
-    manipulation = prepare_manipulation(env, cfg["manipulation"], log, cfg["train"])
+    manipulation = prepare_manipulation(env, cfg["manipulation"], log, cfg["train"], device)
     pose_estimator = prepare_pose_estimator(env, cfg["pose_estimator"], log, device)
     controller = prepare_controller(env, pose_estimator, manipulation,
                                     cfg["controller"], cfg, log, writer=writer,

@@ -115,6 +115,29 @@ def test_k1_kernel_equals_plain_over_the_window_sweep(cuda, S_out, B):
         assert ((out16.float() - ref).abs() <= ulp).all()
 
 
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("S_out", [64, 192, 224, 65])
+def test_k1_clamp_kernel_equals_plain_over_the_window_sweep(cuda, S_out, B):
+    """K1's clamping mode (the estimator trainer's crop) over the same
+    windows, with ratio = S / side as ``prepare_model_input`` computes it:
+    f32 and bf16 bit for bit against its plain version (the plain version's
+    fused multiply-adds are rounded once, as the kernel's)."""
+    g = torch.Generator(device=cuda).manual_seed(S_out + B + 1)
+    rgb = torch.rand(B, H, W, 3, generator=g, device=cuda)
+    for rmin, cmin, side in batches(sweep_windows(S_out), B, cuda):
+        win = (rmin, cmin, torch.full_like(side, S_out) / side)
+        before = (k1.crop_resize_normalize_clamp.launches, k1.crop_resize_normalize.launches)
+        out = k1.crop_resize_normalize_clamp(rgb, *win, S_out)
+        out16 = k1.crop_resize_normalize_clamp(rgb, *win, S_out, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert (k1.crop_resize_normalize_clamp.launches,
+                k1.crop_resize_normalize.launches) == (before[0] + 2, before[1])
+        ref = k1.crop_resize_normalize_clamp_plain(rgb, *win, S_out)
+        bad = (out != ref).any(-1).nonzero()
+        assert bad.numel() == 0, f"S={S_out} B={B}: first (b, y, x) differing {bad[:4].tolist()}"
+        assert torch.equal(out16, ref.to(torch.bfloat16))
+
+
 def test_k1_kernel_equals_plain_on_a_frame_of_odd_width(cuda):
     """W = 642: a frame row of 1,926 floats is not a whole number of 16-byte
     vectors, so the kernel's vertical pass takes scalar loads."""
@@ -126,6 +149,9 @@ def test_k1_kernel_equals_plain_on_a_frame_of_odd_width(cuda):
     win = (w[:, 0], w[:, 1], w[:, 2] * torch.tensor(1.0 / S, device=cuda))
     out = k1.crop_resize_normalize(rgb, *win, S)
     assert torch.equal(out, k1.crop_resize_normalize_plain(rgb, *win, S))
+    clamp = (w[:, 0], w[:, 1], torch.full_like(w[:, 2], S) / w[:, 2])
+    out = k1.crop_resize_normalize_clamp(rgb, *clamp, S)
+    assert torch.equal(out, k1.crop_resize_normalize_clamp_plain(rgb, *clamp, S))
 
 
 def test_k1_kernel_rejects_a_misaligned_frame(cuda):
@@ -378,28 +404,32 @@ def test_estimator_training_step_on_card_matches_cpu(cuda):
 
 
 def test_k1_equals_plain_on_the_samplers_windows(cuda):
-    """The estimator trainer's sampler on the card: K1 launched twice per
-    batch, bit for bit against its plain version on every rendered window."""
+    """The estimator trainer's sampler on the card: K1's clamping mode (the
+    JAX trainer's border rule) launched twice per batch and the
+    renormalising mode not at all, bit for bit against its plain version on
+    every rendered window."""
     from rgbmanip_tpu_torch.ops import preprocess
 
     seen = []
-    orig = preprocess.crop_resize_normalize
+    orig = preprocess.crop_resize_normalize_clamp
 
-    def kept(rgb, rmin, cmin, inv, out_size, out_dtype=torch.float32):
-        seen.append((rgb.clone(), rmin.clone(), cmin.clone(), inv.clone(), out_size))
-        return orig(rgb, rmin, cmin, inv, out_size, out_dtype=out_dtype)
-    preprocess.crop_resize_normalize = kept
-    before = k1.crop_resize_normalize.launches
+    def kept(rgb, rmin, cmin, ratio, out_size, out_dtype=torch.float32):
+        seen.append((rgb.clone(), rmin.clone(), cmin.clone(), ratio.clone(), out_size))
+        return orig(rgb, rmin, cmin, ratio, out_size, out_dtype=out_dtype)
+    preprocess.crop_resize_normalize_clamp = kept
+    before = (k1.crop_resize_normalize_clamp.launches, k1.crop_resize_normalize.launches)
     try:
         batch = estimator_batch(cuda, n_envs=8)
     finally:
-        preprocess.crop_resize_normalize = orig
-    assert k1.crop_resize_normalize.launches - before == len(seen) == 2
+        preprocess.crop_resize_normalize_clamp = orig
+    assert k1.crop_resize_normalize_clamp.launches - before[0] == len(seen) == 2
+    assert k1.crop_resize_normalize.launches == before[1]
     assert batch["img1"].device.type == "cuda" and batch["valid"].any()
-    for rgb, rmin, cmin, inv, size in seen:
-        out = k1.crop_resize_normalize(rgb, rmin, cmin, inv, size)
-        assert torch.equal(out, k1.crop_resize_normalize_plain(rgb, rmin, cmin, inv, size))
-    assert torch.equal(batch["img1"], k1.crop_resize_normalize(*seen[0][:4], S))
+    for rgb, rmin, cmin, ratio, size in seen:
+        out = k1.crop_resize_normalize_clamp(rgb, rmin, cmin, ratio, size)
+        assert torch.equal(out, k1.crop_resize_normalize_clamp_plain(rgb, rmin, cmin, ratio,
+                                                                     size))
+    assert torch.equal(batch["img1"], k1.crop_resize_normalize_clamp(*seen[0][:4], S))
 
 
 HEURISTIC_POT = ["dataset=pot_test", "task=open_pot", "manipulation=open_pot",
@@ -645,3 +675,129 @@ def test_generation_on_card_matches_cpu(cuda, version, over):
         out[d.type] = (b.cpu().numpy(), v.cpu().numpy())
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)
+
+
+RL_MANIP = ["dataset=cabinet_train", "task=open_cabinet", "manipulation=open_cabinet",
+            "task.num_envs=2", "seed=11"]
+
+
+def rl_manipulation_iteration(device, save_dir, init=None, actions=None):
+    """One ``RLManipulation`` iteration (2 envs x 4 transitions) on
+    ``device`` with the learn and policy blocks of ``controller/rl.yaml``;
+    from ``init`` (a state dict) and by ``actions`` where given. Returns
+    (initial state dict, storage, final parameters, lr)."""
+    import json
+
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+
+    rl = load_group("controller", "rl")
+    learn = dict(rl["learn"], num_transitions_per_env=4, save_dir=str(save_dir))
+    cfg = load_config(RL_MANIP + ["manipulation.name=rl",
+                                  f"manipulation.learn={json.dumps(learn)}",
+                                  f"manipulation.policy={json.dumps(rl['policy'])}",
+                                  f"device={device.type}"])
+    env = T.prepare_env(cfg["task"], cfg["dataset"], log=get_logger(), seed=cfg["seed"])
+    try:
+        manip = T.prepare_manipulation(env, cfg["manipulation"], get_logger(), device=device)
+        ppo = manip.algo
+        assert {p.device.type for p in ppo.model.parameters()} == {device.type}
+        if init is not None:
+            ppo.model.load_state_dict(init)
+        start = {k: v.detach().cpu().clone() for k, v in ppo.model.state_dict().items()}
+        if actions is not None:
+            it = iter(actions)
+            ppo.action_source = lambda: next(it)
+        manip.learn(1)
+        storage = {k: getattr(ppo.storage, k).copy() for k in (
+            "obs", "states", "actions", "rewards", "dones", "values", "logprobs", "mu")}
+        params = {n: p.detach().cpu() for n, p in ppo.model.named_parameters()}
+        return start, storage, params, ppo.lr
+    finally:
+        env.close()
+
+
+def test_rl_manipulation_iteration_on_card_matches_cpu(cuda, tmp_path):
+    """``RLManipulation`` on the card, then on the CPU from the card's
+    initial weights and by its actions: the rollout equal (the simulator is
+    bit-equal), means within 1e-5, values and log-probabilities within
+    1e-4, the learning rate equal and the parameters after the update
+    within 2e-5 (actor) and 2e-4 (critic), as chip_smoke.py phase 12 holds
+    the camera scheduler's update."""
+    start, card, cp, clr = rl_manipulation_iteration(cuda, tmp_path / "card")
+    _, cpu, hp, hlr = rl_manipulation_iteration(torch.device("cpu"), tmp_path / "cpu",
+                                                init=start, actions=card["actions"])
+    for k in ("obs", "states", "actions", "rewards", "dones"):
+        np.testing.assert_array_equal(cpu[k], card[k], err_msg=k)
+    np.testing.assert_allclose(cpu["mu"], card["mu"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(cpu["values"], card["values"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(cpu["logprobs"], card["logprobs"], rtol=0, atol=1e-4)
+    assert clr == hlr
+    for n in cp:
+        bound = 2e-4 if n.startswith("critic") else 2e-5
+        assert (cp[n] - hp[n]).abs().max().item() <= bound, n
+    assert any((cp[n] - start[n]).abs().max().item() > 0 for n in cp)
+
+
+class FakeRobot:
+    def __init__(self):
+        self.pose = np.array([0.4, 0.0, 0.5, 0.0, 1.0, 0.0, 0.0])
+        self.gripper = 0.04
+
+    def hand_pose(self):
+        return self.pose
+
+    def move_to(self, pose7, duration=0.0):
+        self.pose = np.asarray(pose7, np.float64)
+
+    def set_gripper(self, width):
+        self.gripper = width
+
+
+class FakeCamera:
+    """A fixed 480x640 frame with a bright square object."""
+
+    def capture(self):
+        rgb = np.full((H, W, 3), 0.2, np.float32)
+        rgb[200:280, 280:360] = (0.9, 0.3, 0.1)
+        return (rgb, np.full((H, W), 1.5, np.float32),
+                np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]]))
+
+
+class FakeSAM:
+    def predict(self, rgb):
+        return rgb[..., 0] > 0.5
+
+
+def test_realworld_estimate_on_card_matches_cpu(cuda):
+    """``make_estimator("realworld")`` at the flagship's widths on seeded
+    weights, on the real-world env's 480x640 images (fake drivers): K1
+    twice on the card, the world bbox within 1e-3 m of the CPU's with
+    equal valid flags; an empty mask gives the sentinel on both."""
+    from rgbmanip_tpu_torch.envs.realworld.base_realworld import BaseRealworldEnv
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import make_estimator
+    from rgbmanip_tpu_torch.utils.transform import Pose
+
+    env = BaseRealworldEnv(robot_driver=FakeRobot(), camera_driver=FakeCamera(),
+                           segmenter=FakeSAM())
+    i1 = env.get_image()["camera0"]
+    env.cam_move_to(Pose([0.45, 0.15, 0.55], [0.0, 1.0, 0.0, 0.0]).to_7d()[None])
+    i2 = env.get_image()["camera0"]
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"load": False})
+    g = torch.Generator().manual_seed(4)
+    u = [torch.rand(1, S * S, generator=g) for _ in range(2)]
+    for m1, sentinel in ((i1["Mask"], False), (np.zeros_like(i1["Mask"]), True)):
+        args = (i1["Intrinsic"], i1["Color"], m1, i1["Extrinsic"], i2["Color"], i2["Mask"],
+                i2["Extrinsic"])
+        out = {}
+        for d in (cuda, torch.device("cpu")):
+            est = make_estimator("realworld", cfg, device=d)
+            before = k1.crop_resize_normalize.launches
+            b, v, _ = est._estimate(*(torch.from_numpy(np.asarray(a)).to(d) for a in args),
+                                    *(x.to(d) for x in u))
+            assert k1.crop_resize_normalize.launches - before == (2 if d.type == "cuda" else 0)
+            out[d.type] = (b.cpu().numpy(), v.cpu().numpy())
+        np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)
+        assert (out["cuda"][0] >= 9.0).all() == sentinel

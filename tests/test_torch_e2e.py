@@ -57,22 +57,6 @@ def test_main_writes_result_json(tmp_path):
     assert glob.glob(str(tmp_path / "saves" / "test" / "*" / "config.yaml"))
 
 
-@pytest.mark.parametrize("override, todo", [
-    ("train=controller train.train_manipulation=true", "RLManipulation"),
-    ("manipulation.name=rl", "RLManipulation"),
-])
-def test_what_the_port_lacks_raises_naming_its_roadmap_item(override, todo, tmp_path):
-    with pytest.raises(NotImplementedError, match=todo):
-        port_train.main(TASKS["open_cabinet"] + GT + override.split() + [
-            "device=cpu", "task.num_envs=1",
-            f"train.save_dir={tmp_path}", f"train.log_dir={tmp_path}"])
-
-
-def test_the_real_world_task_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="the real-world env"):
-        port_train.prepare_env({"name": "real_world"}, {})
-
-
 def test_the_privilege_gate_opens_for_the_ports_own_oracle_only():
     """``prepare_controller`` stamps ``privileged_ok`` on the skill only for
     the port's ``GroundTruthPoseEstimator``; the JAX package's class of the

@@ -8,10 +8,11 @@ nearest warp).
 - ``SimViewSampler``: the same seed renders the same views in both packages
   (the camera poses, the replay buffer's choices and the view augmentation
   come from one numpy generator, called in the same order); the port is fed
-  the JAX sampler's point-sampling draws, and the JAX crop runs through its
-  Pallas kernel in interpret mode (its own training data took the CPU
-  fallback, which clamps at the frame border where the kernel and K1
-  renormalise: tests/test_torch_preprocess.py).
+  the JAX sampler's point-sampling draws. The JAX sampler runs as it is: it
+  prepares its batches on the CPU backend, where the crop clamps at the
+  frame border, and the port's sampler crops with K1's clamping mode, so
+  the crops agree on a window in a frame corner too (K1's renormalising
+  mode parts from them there by more than 1: tests/test_torch_preprocess.py).
 - One ``EstimatorTrainer`` step from shared weights on the same batch: the
   loss parts, the gradients, the BatchNorm running statistics (flax's
   biased variance, updated twice per forward) and the parameters. This is
@@ -113,10 +114,9 @@ def sampled_all():
             ps = pdata.SimViewSampler(penv, view_aug=aug, device="cpu", **SAMPLER)
             ps._draws = jax_draws(SEED)
             jb, pb = [], []
-            with jax_pallas_crop():
-                for _ in range(CALLS):
-                    jb.append(js.sample_batch())
-                    pb.append(ps.sample_batch())
+            for _ in range(CALLS):
+                jb.append(js.sample_batch())
+                pb.append(ps.sample_batch())
             out[aug] = (js, ps, jb, pb)
     finally:
         jenv.close()
@@ -147,9 +147,9 @@ def test_sampler_renders_the_same_views(sampled):
 
 
 def test_sampler_batches_match_jax(sampled):
-    """Crops within 1e-5 (K1's plain version against the Pallas kernel),
-    the chosen points equal, the labels equal or within f32 rounding, the
-    projections within 1e-6 relative."""
+    """Crops within 1e-5 (K1's clamping mode, plain, against the JAX
+    sampler's own crop), the chosen points equal, the labels equal or within
+    f32 rounding, the projections within 1e-6 relative."""
     _, _, jb, pb = sampled
     for i, (j, p) in enumerate(zip(jb, pb)):
         assert (j is None) == (p is None), i
@@ -164,6 +164,45 @@ def test_sampler_batches_match_jax(sampled):
             np.testing.assert_allclose(p[k].numpy(), j[k], rtol=1e-6, atol=1e-6, err_msg=k)
         for k in ("P1", "P2"):
             np.testing.assert_allclose(p[k].numpy(), j[k], rtol=1e-6, atol=1e-4, err_msg=k)
+
+
+def test_sampler_crops_a_corner_window_as_the_jax_sampler(sampled_all):
+    """A replayed entry whose masks sit in the frame's top-left (view 1) and
+    bottom-right (view 2) corners, in copies of both samplers: the port's
+    batch equals the JAX sampler's own within 1e-5, where the renormalising
+    rule parts from it by more than ten times that (on these smooth renders;
+    by 3.3 on noise: tests/test_torch_preprocess.py)."""
+    import copy
+
+    from rgbmanip_tpu_torch.ops.preprocess import prepare_model_input
+    from rgbmanip_tpu_torch.utils.logger import PhaseTimer
+
+    js, ps, _, _ = sampled_all["box"]
+    (jv1, jv2, frames), (pv1, pv2, _) = js._buffer[-1], ps._buffer[-1]
+    corners = []
+    for sl in ((slice(0, 30), slice(0, 30)), (slice(450, 480), slice(610, 640))):
+        m = np.zeros_like(jv1["Mask"])
+        m[:, sl[0], sl[1]] = True
+        corners.append(m)
+    jcopy, pcopy = copy.copy(js), copy.copy(ps)
+    jcopy._buffer = [(dict(jv1, Mask=corners[0]), dict(jv2, Mask=corners[1]), frames)]
+    pcopy._buffer = [(dict(pv1, Mask=torch.from_numpy(corners[0])),
+                      dict(pv2, Mask=torch.from_numpy(corners[1])), frames)]
+    jcopy.rng, pcopy.rng = copy.deepcopy(js.rng), copy.deepcopy(js.rng)
+    jcopy.key = np.asarray(jax.random.PRNGKey(11))
+    pcopy._draws = jax_draws(11)
+    pcopy.timer = PhaseTimer()
+    jcopy._calls = pcopy._calls = 1            # the next call replays
+    j, p = jcopy.sample_batch(), pcopy.sample_batch()
+    assert j is not None and p is not None and j["valid"].all()
+    for k in ("img1", "img2"):
+        np.testing.assert_allclose(p[k].numpy(), j[k], rtol=0, atol=1e-5, err_msg=k)
+    for k in ("choose1", "choose2"):
+        np.testing.assert_array_equal(p[k].numpy(), j[k], err_msg=k)
+    K = torch.from_numpy(np.asarray(jv1["Intrinsic"], np.float32))
+    renorm = prepare_model_input(pv1["Color"].float(), torch.from_numpy(corners[0]), K,
+                                 torch.Generator().manual_seed(0), S, N_PTS)[0]
+    assert float(np.abs(renorm.numpy() - j["img1"]).max()) > 1e-4
 
 
 def test_the_replay_buffer_keeps_views_on_the_device_and_copies_only_labels(sampled):
@@ -431,10 +470,9 @@ def test_policy_view_sampler_matches_jax(tmp_path):
             return actions[len(own) - 1]
         js._ppo.act_inference, ps._ppo.act_inference = jax_act, port_act
         jb, pb = [], []
-        with jax_pallas_crop():
-            for _ in range(2):
-                jb.append(js.sample_batch())
-                pb.append(ps.sample_batch())
+        for _ in range(2):
+            jb.append(js.sample_batch())
+            pb.append(ps.sample_batch())
     finally:
         jenv.close()
         penv.close()

@@ -629,3 +629,27 @@ def test_train_step_profile_counts_each_dtypes_ops_on_the_cpu():
         assert "wall_ms" not in row and "busy_ms" not in row
     # bf16 dispatches flax's casts on top of f32's ops
     assert out["bf16"]["aten_ops"] > out["f32"]["aten_ops"]
+
+
+def test_bf16_step_spread_readings_with_the_cpu_in_the_cards_place():
+    """``scripts/bf16_step_spread.py``'s readings of one 2-env slice with
+    the CPU in the card's place (64 px, seeded weights, a synthetic batch):
+    the card-vs-CPU difference of every loss part is 0, so the least
+    multiplier that passes it is 0; the f32 control sits at the CPU's own
+    bf16-to-f32 difference, within f32 rounding of the loss; crops moved
+    one and four pixels move the loss."""
+    from rgbmanip_tpu_torch.config.loader import load_group
+    from rgbmanip_tpu_torch.scripts import bf16_step_spread as SP
+
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast",
+                     {"load": False, "checkpoint_path": "", "img_size": S, "n_pts": NPTS})
+    batch = ptraining.synthetic_batch(torch.Generator().manual_seed(3), B, S, NPTS,
+                                      n_depth=int(cfg["n_depth"]))
+    x = SP.slice_readings(cfg, torch.device("cpu"), batch)
+    assert set(x) == {"r", "c", "c_card"} | set(SP.CONTROLS)
+    assert all(v == 0.0 for v in x["r"].values()) and SP.k_needed([x]) == 0.0
+    assert x["c"] == x["c_card"] and all(v > 0 for v in x["c"].values())
+    for part, c in x["c"].items():
+        assert abs(x["f32"][part] - c) <= 1e-5 * (1 + c), part
+    for control in ("shift1", "shift4"):
+        assert max(x[control].values()) > 0, control

@@ -230,6 +230,87 @@ def test_prepare_model_input_matches_jax(jax_pallas_crop):
     np.testing.assert_allclose(crop, ref[0], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("size", [64, S, 224])
+def test_k1_clamp_mode_equals_the_jax_cpu_fallback(size):
+    """K1's clamping mode (plain) against the JAX package's own
+    ``prepare_model_input`` on its CPU backend, unpatched: the crop its
+    estimator trainer's sampler makes. Centred, large, corner and
+    bottom-right windows and an empty mask (a reversed window), f16-valued
+    frames as the sampler's buffer holds them: bit for bit (the plain
+    version rounds each step as XLA's compiled fallback does; the bound the
+    trainer's parity needs is 1e-5)."""
+    from rgbmanip_tpu.ops.preprocess import prepare_model_input as jax_prepare
+
+    B = 5
+    rgb = frames(B, seed=6).astype(np.float16).astype(np.float32)
+    mask = np.zeros((B, H, W), bool)
+    mask[:4] = masks(4)
+    K = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+    with jax.default_device(jax.devices("cpu")[0]):
+        ref = np.asarray(jax_prepare(jnp.asarray(rgb), jnp.asarray(mask), jnp.asarray(K),
+                                     jax.random.PRNGKey(0), out_size=size, n_pts=128)[0])
+    out = port_pre.prepare_model_input(torch.from_numpy(rgb), torch.from_numpy(mask),
+                                       torch.from_numpy(K), torch.Generator().manual_seed(0),
+                                       out_size=size, n_pts=128, border="clamp")[0]
+    np.testing.assert_array_equal(out.numpy(), ref)
+    bf16 = port_k1.crop_resize_normalize_clamp_plain(
+        torch.from_numpy(rgb), *port_window([(180, 260, 120)] * B)[:2],
+        torch.full((B,), size / 120.0), size, out_dtype=torch.bfloat16)
+    f32 = port_k1.crop_resize_normalize_clamp_plain(
+        torch.from_numpy(rgb), *port_window([(180, 260, 120)] * B)[:2],
+        torch.full((B,), size / 120.0), size)
+    assert torch.equal(bf16, f32.to(torch.bfloat16))
+
+
+def test_k1_clamp_mode_mixes_rows_0_and_1_above_the_frame():
+    """At the corner window the first output row reads src row -0.396
+    (floor -1): the clamping rule takes rows 0 and 1 with weights 0.396 and
+    0.604 (from the unclamped floor), not row 0 alone."""
+    rgb = frames(1, seed=3)
+    ratio = torch.tensor([S / 40.0])
+    out = port_k1.crop_resize_normalize_clamp_plain(
+        torch.from_numpy(rgb), torch.zeros(1), torch.tensor([100.0]), ratio, S).numpy()
+    src = (0 + 0.5 / np.float32(S / 40.0)) - 0.5
+    wy = np.float32(src - np.floor(src))
+    mean = np.asarray(port_k1.IMAGENET_MEAN, np.float32)
+    std = np.asarray(port_k1.IMAGENET_STD, np.float32)
+    xsrc = (100 + 0.5 / np.float32(S / 40.0)) - 0.5
+    x0, wx = int(np.floor(xsrc)), np.float32(xsrc - np.floor(xsrc))
+    col = lambda x: (1 - wy) * rgb[0, 0, x] + wy * rgb[0, 1, x]
+    want = ((1 - wx) * col(x0) + wx * col(x0 + 1) - mean) / std
+    np.testing.assert_allclose(out[0, 0, 0], want, rtol=0, atol=1e-5)
+    assert abs(wy - 0.604) < 1e-3
+
+
+def test_k1_clamp_fma_is_rounded_once():
+    """The plain clamping mode's fused multiply-add (round to odd in f64)
+    against exact rational arithmetic on values whose f64 sum would round
+    twice."""
+    from fractions import Fraction
+
+    from rgbmanip_tpu_torch.ops.crop_resize import _fma
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(-2, 2, 2000).astype(np.float32)
+    b = rng.uniform(-2, 2, 2000).astype(np.float32)
+    c = rng.uniform(-2, 2, 2000).astype(np.float32) * np.float32(2.0 ** -30)
+    got = _fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    for i in range(len(a)):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo, np.nextafter(lo, np.float32(np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(np.float32(v).view(np.uint32)) & 1))
+        assert got[i] == best, i
+
+
+def test_prepare_model_input_rejects_an_unknown_border():
+    with pytest.raises(ValueError, match="border"):
+        port_pre.prepare_model_input(torch.zeros(1, H, W, 3), torch.zeros(1, H, W, dtype=torch.bool),
+                                     torch.eye(3)[None], torch.Generator(), 64, 128,
+                                     border="wrap")
+
+
 def test_prepare_model_input_sampling_invariants():
     """With a generator: every chosen pixel lies in the mask, and a mask with
     fewer resized pixels than n_pts is wrap-padded."""
