@@ -34,7 +34,9 @@ and every estimator generation of ``make_estimator`` with the heuristic
 round of ``pose_estimator=adapose_baseline``. Last, the run modes of the
 eighth slice: the RL skill (``manipulation=rl``, trained and played), the
 URDF fixture datasets (the gt stack on all four, a flagship round on the
-cabinet) and the real-world env with fake drivers. The estimator's trainer
+cabinet) and the real-world env with fake drivers. Then the last modules:
+the config generator and multi-device training (``graft_entry``'s
+``entry`` and ``dryrun_multichip``). The estimator's trainer
 crops with K1's clamping border mode, as the JAX package's trainer crops
 on its CPU backend. Each path runs with every launch counter set to 0 just
 before it and read just after. Phases:
@@ -123,6 +125,20 @@ before it and read just after. Phases:
      estimates of the ``realworld`` generation at ``adapose_cabinet_fast``'s
      widths on seeded weights on its 480x640 views (one with an empty
      mask: the sentinel), card against the CPU within 1e-3 m, K1 twice each
+ 19. the config generator: ``generate_cfg.main`` into a temporary directory;
+     the flagship run's groups composed from it with ``load_config(...,
+     cfg_root=...)`` equal the committed tree's composition but for the
+     hand-edited ``controller/rl``; the trees differ in exactly the listed
+     files; the next ``load_config`` without ``cfg_root`` reads the
+     committed tree (host only)
+ 20. multi-device: ``graft_entry.entry()``'s bf16 forward on the card and on
+     the CPU, within twice the CPU's own bf16-to-f32 difference (phase 15's
+     rule, on each output's mean); ``dryrun_multichip(torch.cuda.device_count())``
+     through NCCL, one rank per card (world 1 here: dp=1, tp=1), its
+     estimator loss and PPO metrics against the same steps run unsharded on
+     the CPU at 1e-4 relative, and the ms per sharded step beside the
+     unsharded step's on the card. Neither path launches K1 or K5 (the
+     dryrun's batches come cropped, as the JAX dryrun's do)
 
 Phase 3 also holds K1 against its plain version on a reversed window (an
 empty mask gives a window of negative side), and K1's clamping border mode
@@ -229,6 +245,17 @@ FIXTURE_GT = ["controller=gt_pose", "pose_estimator=ground_truth", "train=test",
               "train.total_round=8", "task.num_envs=8", "seed=0"]
 # phase 18: the real-world env with fake drivers, 480x640 frames
 REALWORLD_K = ((600.0, 0.0, 320.0), (0.0, 600.0, 240.0), (0.0, 0.0, 1.0))
+# phase 19: the flagship evaluation's groups with the paper-size estimator of
+# the same task (the generator does not write adapose_cabinet_fast); the
+# committed files the generator does not write, and those edited by hand
+GEN_FLAGSHIP = ["dataset=cabinet_test", "task=open_cabinet", "manipulation=open_cabinet",
+                "controller=rl", "pose_estimator=adapose_cabinet", "train=test"]
+GEN_NOT_WRITTEN = {"dataset/mug_urdf_fixture.yaml", "pose_estimator/adapose_cabinet_fast.yaml",
+                   "pose_estimator/adapose_drawer_fast.yaml",
+                   "pose_estimator/adapose_mug_fast.yaml", "pose_estimator/adapose_pot_fast.yaml"}
+GEN_HAND_EDITED = {"manipulation/close_cabinet.yaml", "manipulation/close_drawer.yaml",
+                   "controller/rl.yaml"}
+DRYRUN_RTOL = 1e-4             # phase 20: the sharded steps on the card against the CPU
 
 
 class SmokeError(RuntimeError):
@@ -1274,8 +1301,7 @@ def bf16_training(np, torch, dev, card):
             + ", ".join(f"{n} {abs(g16[n] - c16[0][n]) / abs(c16[0][n]):.3g} ({limit[n]:.3g})"
                         for n in sorted(c)))
         worst, shifted, own, gap = 0.0, 0.0, 0.0, 0.0
-        stats = params = 0.0
-        cos = 1.0
+        stats, params, cos = [], [], []     # np.max / np.min: a NaN fails the checks
         for lo in range(0, batch["img1"].shape[0], EST_CPU_ENVS):
             sub = {n: v[lo:lo + EST_CPU_ENVS] for n, v in batch.items()}
             runs, c16, c32, c, limit, w = parts_gap(
@@ -1287,17 +1313,19 @@ def bf16_training(np, torch, dev, card):
                 f"difference, at least 1e-2): "
                 + ", ".join(f"{n} {abs(g16[n] - c16[0][n]) / abs(c16[0][n]):.3g} "
                             f"({limit[n]:.3g})" for n in sorted(c)))
-            worst, shifted = max(worst, w["card"]), max(shifted, w["shifted"])
+            worst = float(np.max([worst, w["card"]]))
+            shifted = float(np.max([shifted, w["shifted"]]))
             # bf16's rounding shows on the card as on the CPU: a card that
             # ran f32 would sit 0 from its own f32 step
             own += sum(abs(g16[n] - g32[n]) / abs(g32[n]) for n in c)
             gap += sum(c.values())
             (gp, gs), (cp, cs) = runs["card"][1], c16[1]
-            stats = max(stats, max(float(np.abs(gs[n] - cs[n]).max()
-                                         / (np.abs(cs[n]).max() + 1e-6)) for n in cs))
-            params = max(params, max(float(np.abs(gp[n] - cp[n]).max()) for n in cp))
+            stats += [float(np.abs(gs[n] - cs[n]).max() / (np.abs(cs[n]).max() + 1e-6))
+                      for n in cs]
+            params += [float(np.abs(gp[n] - cp[n]).max()) for n in cp]
             ga, gb = runs["card"][2], c16[2]
-            cos = min(cos, float(ga @ gb / ga.norm() / gb.norm()))
+            cos.append(float(ga @ gb / ga.norm() / gb.norm()))
+        stats, params, cos = float(np.max(stats)), float(np.max(params)), float(np.min(cos))
         say("bf16", f"one bf16 step on the card vs the CPU from the saved head: the largest "
             f"loss part's difference over its limit {whole['card']:.3g} on the whole batch, "
             f"{worst:.3g} on the {EST_CPU_ENVS}-env slices (at most 1 each); on crops "
@@ -1697,6 +1725,168 @@ def realworld_env(np, torch, dev, card):
         f"(min corner coordinate {float(out['empty mask'][0].min()):.2f} m); estimate at B=1 "
         f"{wall:.2f} ms wall on the card")
     return launches[0]
+
+
+# ------------------------------- phases 19-20: config generator, multi-device --
+def yaml_tree(root):
+    import yaml
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if n.endswith(".yaml"):
+                with open(os.path.join(d, n)) as f:
+                    out[os.path.relpath(os.path.join(d, n), root)] = yaml.safe_load(f)
+    return out
+
+
+def config_generator():
+    """Phase 19: ``generate_cfg.main`` writes the generated tree into a
+    temporary directory (``CFG`` pointed there); the flagship run's groups
+    compose from it with ``load_config(..., cfg_root=...)`` as from the
+    committed tree but for the hand-edited ``controller/rl``; the trees
+    differ in exactly the listed files; a ``load_config`` without
+    ``cfg_root`` afterwards reads the committed tree. Host only."""
+    import tempfile
+
+    from rgbmanip_tpu_torch.config import generate_cfg
+    from rgbmanip_tpu_torch.config.loader import CFG_ROOT, load_config
+
+    t0 = time.perf_counter()
+    committed = load_config(GEN_FLAGSHIP)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        saved, generate_cfg.CFG = generate_cfg.CFG, tmp
+        try:
+            generate_cfg.main()
+        finally:
+            generate_cfg.CFG = saved
+        gen, com = yaml_tree(tmp), yaml_tree(CFG_ROOT)
+        composed = load_config(GEN_FLAGSHIP, cfg_root=tmp)
+    check(len(gen) == 53, f"the generator wrote {len(gen)} files, not 52 groups + config.yaml")
+    check(set(com) - set(gen) == GEN_NOT_WRITTEN and not set(gen) - set(com),
+          f"generated vs committed files: missing {sorted(set(com) - set(gen))}, extra "
+          f"{sorted(set(gen) - set(com))}")
+    differ = {k for k in gen if gen[k] != com[k]}
+    check(differ == GEN_HAND_EDITED, f"generated files that differ from the committed: "
+          f"{sorted(differ)}")
+    check(composed["device"] == "cuda" and "device" not in composed["controller"]["learn"],
+          "the generated tree lacks the port's device key or keeps the JAX package's")
+    parted = {k for k in committed if composed[k] != committed[k]}
+    check(parted == {"controller"}, f"the flagship run composed from the generated tree "
+          f"differs from the committed one in {sorted(parted)}")
+    check(load_config(GEN_FLAGSHIP) == committed,
+          "load_config without cfg_root no longer reads the committed tree")
+    say("config", f"generate_cfg.main wrote {len(gen)} files into a temporary directory: "
+        f"equal to the committed tree as dicts but for {sorted(differ)} (edited by hand) "
+        f"and the {len(GEN_NOT_WRITTEN)} files it does not write; the flagship run's groups "
+        f"({' '.join(GEN_FLAGSHIP)}) composed with cfg_root equal the committed composition "
+        f"but for the controller, device: {composed['device']}; the next load_config "
+        f"without cfg_root reads the committed tree; {time.perf_counter() - t0:.2f} s")
+
+
+def entry_forward(np, torch, dev, card):
+    """Phase 20a: ``graft_entry.entry()``'s bf16 forward (the flagship
+    network at the JAX module's defaults, resnet34, B=2, 224 px, 1024
+    points, 24 depths) on the card and on the CPU, with the f32 forward of
+    the same weights on each; per output, the mean |card - CPU| of the bf16
+    forwards within twice the CPU's own mean bf16-to-f32 difference (phase
+    15's rule), and the card's own bf16-to-f32 difference at least half the
+    CPU's (it computed in bf16). Returns the card's launches of K1 and K5."""
+    from rgbmanip_tpu_torch import graft_entry
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    names = ("view1_nocs", "view1_depth", "view1_r")
+    zero_k1_counters(k1)
+    k5.row_gather.launches = 0
+    forward, args = graft_entry.entry()
+    card16 = [o.float().cpu() for o in forward(*args)]
+    torch.cuda.synchronize()
+    launches = (k1.crop_resize_normalize.launches + k1.crop_resize_normalize_clamp.launches,
+                k5.row_gather.launches)
+    outs = forward(*args)
+    check([o.dtype for o in outs] == [torch.bfloat16, torch.float32, torch.bfloat16]
+          and all(o.is_cuda for o in outs), "entry() did not run in bf16 on the card (the "
+          "depth comes out of its f32 softmax)")
+    B, _, N, _ = graft_entry.ENTRY_SHAPE
+    check([tuple(o.shape) for o in card16] == [(B, N, 3), (B, N), (B, 3, 3)]
+          and all(torch.isfinite(o).all() for o in card16), "entry(): bad outputs")
+    wall = host_ms(torch, lambda: forward(*args), reps=5)
+
+    def f32(device, a):
+        net = graft_entry.flagship_net(torch.float32, device)
+        with torch.no_grad():
+            out = net(*a)
+        return [out[n].float().cpu() for n in names]
+    card32 = f32(dev, args)
+    cpu_forward, cpu_args = graft_entry.entry(device="cpu")
+    t0 = time.perf_counter()
+    cpu16 = [o.float() for o in cpu_forward(*cpu_args)]
+    cpu_s = time.perf_counter() - t0
+    cpu32 = f32(torch.device("cpu"), cpu_args)
+    for n, c16, c32, p16, p32 in zip(names, card16, card32, cpu16, cpu32):
+        d = float((c16 - p16).abs().mean())
+        gap = float((p16 - p32).abs().mean())
+        own = float((c16 - c32).abs().mean())
+        say("entry", f"{n}: card vs CPU (bf16) mean |diff| {d:.3g} (limit {2 * gap:.3g}: "
+            f"twice the CPU's own bf16-to-f32 {gap:.3g}), max {float((c16 - p16).abs().max()):.3g}; "
+            f"the card's own bf16-to-f32 {own:.3g} (at least {0.5 * gap:.3g})")
+        check(d <= 2 * gap, f"entry(): card and CPU bf16 {n} disagree")
+        check(own >= 0.5 * gap, f"entry(): the card's bf16 {n} sits too close to its f32: "
+              f"it did not compute in bf16")
+    _, S, _, D = graft_entry.ENTRY_SHAPE
+    say("entry", f"{card} | entry() bf16 forward, B={B} {S} px resnet34 stride 8, a "
+        f"{S}x{S}x{D} volume, bilinear warp: {wall:.2f} ms wall on the card (CPU {cpu_s:.1f} s); "
+        f"launches (K1, K5) {launches}: neither kernel is on this path")
+    return launches
+
+
+def multi_device(np, torch, dev, card):
+    """Phase 20b: ``dryrun_multichip(torch.cuda.device_count())``, one rank
+    per card through NCCL, with the same steps run unsharded on the CPU
+    (f32, TF32 off) and on the card: the estimator's loss and parts and the
+    PPO update's metrics within ``DRYRUN_RTOL``; the world size, the mesh
+    and the ms per step, sharded and unsharded on the card (at world 1 the
+    cost of the mesh path: the group's collectives and the DTensors).
+    Returns the launches of K1 and K5 in this process (the ranks are
+    others)."""
+    from rgbmanip_tpu_torch import graft_entry
+
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+
+    n = torch.cuda.device_count()
+    zero_k1_counters(k1)
+    k5.row_gather.launches = 0
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(n)
+    run_s = time.perf_counter() - t0
+    launches = (k1.crop_resize_normalize.launches + k1.crop_resize_normalize_clamp.launches,
+                k5.row_gather.launches)
+    dp, tp = out["dp"], out["tp"]
+    check(dp * tp == n, f"a {dp}x{tp} mesh over {n} cards")
+    cpu = graft_entry.dryrun_steps(dp, tp, device="cpu")
+    whole = graft_entry.dryrun_steps(dp, tp, device=dev)
+    got = [out["estimator_loss"]] + [out["estimator_parts"][k] for k in sorted(cpu["estimator_parts"])]
+    ref = [cpu["estimator_loss"]] + [cpu["estimator_parts"][k] for k in sorted(cpu["estimator_parts"])]
+    est_err = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    ppo_err = max(abs(a - b) / abs(b) for a, b in zip(out["ppo_metrics"], cpu["ppo_metrics"]))
+    if "production_loss" in out:
+        a, b = out["production_loss"], cpu["production_loss"]
+        check(abs(a - b) <= DRYRUN_RTOL * abs(b),
+              f"the production-shape step's loss {a} against the CPU's {b}")
+    say("multichip", f"{card} | dryrun_multichip({n}) through nccl: world {n}, mesh dp={dp} "
+        f"tp={tp}, {run_s:.1f} s with process start; estimator loss {out['estimator_loss']:.6f} "
+        f"and parts, largest relative difference from the unsharded step on the CPU "
+        f"{est_err:.3g}; PPO metrics {[round(m, 6) for m in out['ppo_metrics']]}, "
+        f"{ppo_err:.3g} (limit {DRYRUN_RTOL:g} each)")
+    say("multichip", f"{card} | ms per step on the card (median of 3 calls after the "
+        f"first): estimator "
+        f"(resnet18, B={2 * dp}, 32 px) sharded {out['estimator_ms']:.2f}, unsharded "
+        f"{whole['estimator_ms']:.2f}; PPO update (T=8, N={4 * dp}, 2x2 minibatches) sharded "
+        f"{out['ppo_ms']:.2f}, unsharded {whole['ppo_ms']:.2f}")
+    check(est_err <= DRYRUN_RTOL and ppo_err <= DRYRUN_RTOL,
+          "the sharded steps on the card disagree with the unsharded steps on the CPU")
+    return launches
 
 
 def k1_bf16_timing(torch, F, rgb, win, S, card):
@@ -2453,6 +2643,15 @@ def run():
 
     # 18. the real-world env ------------------------------------------------------
     realworld_launches = realworld_env(np, torch, dev, card)
+
+    # 19. the config generator ----------------------------------------------------
+    config_generator()
+
+    # 20. multi-device: entry() and dryrun_multichip through nccl -----------------
+    entry_launches = entry_forward(np, torch, dev, card)
+    dryrun_launches = multi_device(np, torch, dev, card)
+    check(entry_launches == dryrun_launches == (0, 0),
+          f"entry() and the dryrun launched (K1, K5) {entry_launches} and {dryrun_launches}")
 
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{

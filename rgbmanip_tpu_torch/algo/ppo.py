@@ -16,6 +16,15 @@ adam)``) step for step:
   only when the global norm (``log_std`` included) is at least ``max_norm``;
 - ``torch.optim.Adam`` (eps 1e-8) takes the step.
 
+With a ``mesh`` (``parallel.mesh.make_mesh``) each rank updates on its dp
+block of the envs, as the JAX package's update runs a rollout sharded on
+its env axis, and every value the update reads is the global one: each
+minibatch is the rank's rows of the global minibatch (a band of time steps
+across all envs), each loss term is the rank's share of the minibatch's
+mean, and the gradients with the metrics are summed over the dp sub-group
+before the KL picks the rate and the global norm clips. The parameters stay
+replicated, as in the JAX dryrun.
+
 Checkpoints are the JAX package's file (``model_<it>.ckpt``, flax msgpack):
 ``params/params/...``, the optax ``opt_state`` with the Adam moments and
 ``lr``; each package resumes from the other's, moments included.
@@ -32,9 +41,12 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .. import repo_path, resolve_device
+from ..parallel.mesh import shard_batch
 from ..utils.checkpoint import read_msgpack, write_msgpack
 from ..utils.logger import MetricsWriter, PhaseTimer, get_logger
 
@@ -245,14 +257,28 @@ def compute_gae(rewards, dones, values, last_value, gamma: float, lam: float):
     return returns, advs
 
 
+def _sum_of_squares(g):
+    """sum(g * g) over the whole tensor: a DTensor's local sum of squares
+    is summed over each mesh dim it is sharded on."""
+    if not isinstance(g, DTensor):
+        return (g * g).sum()
+    s = (g.to_local() ** 2).sum()
+    for dim, placement in enumerate(g.placements):
+        if placement.is_shard():
+            dist.all_reduce(s, group=g.device_mesh.get_group(dim))
+    return s
+
+
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
-    place: unchanged below ``max_norm``, else ``g / norm * max_norm``.
-    Returns the norm (a device tensor; nothing waits for it)."""
+    place: unchanged below ``max_norm``, else ``g / norm * max_norm``. A
+    gradient that is a sharded DTensor enters the norm whole. Returns the
+    norm (a device tensor; nothing waits for it)."""
     grads = [p.grad for p in params]
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    norm = torch.sqrt(sum(_sum_of_squares(g) for g in grads))
     keep = norm < max_norm
     for g in grads:
+        g = g.to_local() if isinstance(g, DTensor) else g
         g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
 
@@ -264,10 +290,12 @@ class PPO:
     device). ``action_source``, when set, is called at each rollout step for
     the actions to take instead of drawn ones (the log-probabilities and
     values are the policy's own at those actions); parity runs set it to
-    replay another run's actions."""
+    replay another run's actions. ``mesh``: update each rank on its dp block
+    of the envs (module docstring); ``vec_env`` is the whole env, and
+    ``run`` steps it whole on every rank."""
 
     def __init__(self, vec_env, cfg: dict, writer: Optional[MetricsWriter] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self.env = vec_env
         self.cfg = cfg
         ctrl = cfg.get("controller")
@@ -278,6 +306,7 @@ class PPO:
         self.log = get_logger()
         self.writer = writer
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.save_dir = learn.get("save_dir", "saves/ppo")
 
         self.num_transitions = int(learn["num_transitions_per_env"])
@@ -343,28 +372,34 @@ class PPO:
         return self.model.act_inference(obs)
 
     # --- update: epochs x minibatches with the adaptive-KL learning rate ---
-    def _loss(self, mb):
-        """(loss, [surrogate, value loss, entropy, kl]) of one minibatch."""
-        mean, std, value = self.model(mb["obs"], mb["states"])
-        logprob = gaussian_logprob(mean, std, mb["actions"])
+    def _loss(self, mb, count: Optional[int] = None):
+        """(loss, [surrogate, value loss, entropy, kl]) of one minibatch;
+        with ``count``, the global minibatch's row count when ``mb`` is this
+        rank's share of it, each a share of the global mean."""
+        def mean(x):
+            return x.mean() if count is None else x.sum() / count
+
+        mean_, std, value = self.model(mb["obs"], mb["states"])
+        logprob = gaussian_logprob(mean_, std, mb["actions"])
         ratio = torch.exp(logprob - mb["logprobs"])
         adv = mb["advantages"]
         surr1 = ratio * adv
         surr2 = torch.clamp(ratio, 1 - self.clip_range, 1 + self.clip_range) * adv
-        surrogate = -torch.minimum(surr1, surr2).mean()
+        surrogate = -mean(torch.minimum(surr1, surr2))
         if self.use_clipped_value:
             v_clipped = mb["values"] + torch.clamp(value - mb["values"],
                                                    -self.clip_range, self.clip_range)
-            v_loss = torch.maximum((value - mb["returns"]) ** 2,
-                                   (v_clipped - mb["returns"]) ** 2).mean()
+            v_loss = mean(torch.maximum((value - mb["returns"]) ** 2,
+                                        (v_clipped - mb["returns"]) ** 2))
         else:
-            v_loss = ((mb["returns"] - value) ** 2).mean()
-        entropy = gaussian_entropy(std).mean()
+            v_loss = mean((mb["returns"] - value) ** 2)
+        entropy = gaussian_entropy(std)    # one value for every row
+        entropy = entropy.mean() if count is None else entropy * (adv.shape[0] / count)
         loss = surrogate + self.value_coef * v_loss - self.entropy_coef * entropy
         # KL between the old and the new gaussians (reference ppo.py:480-488)
-        kl = (torch.log(std / mb["sigma"] + 1e-5)
-              + (mb["sigma"] ** 2 + (mb["mu"] - mean) ** 2) / (2 * std ** 2)
-              - 0.5).sum(-1).mean()
+        kl = mean((torch.log(std / mb["sigma"] + 1e-5)
+                   + (mb["sigma"] ** 2 + (mb["mu"] - mean_) ** 2) / (2 * std ** 2)
+                   - 0.5).sum(-1))
         return loss, [surrogate, v_loss, entropy, kl.detach()]
 
     def _next_lr(self, lr: np.float32, kl: float) -> np.float32:
@@ -378,22 +413,30 @@ class PPO:
     def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One update from a (T, N, ...) batch of device tensors (``obs``,
         ``states``, ``actions``, ``logprobs``, ``values``, ``returns``,
-        ``advantages``, ``mu``, ``sigma``). Returns the mean over all steps of
-        [loss, surrogate, value loss, entropy, kl]; ``self.lr`` is the last
-        step's rate and ``self.update_lrs`` each step's."""
-        T, N = batch["obs"].shape[:2]
-        total = T * N
+        ``advantages``, ``mu``, ``sigma``; with a mesh this rank's block of
+        the envs, ``shard_batch(..., dim=1)``). Returns the mean over all
+        steps of [loss, surrogate, value loss, entropy, kl]; ``self.lr`` is
+        the last step's rate and ``self.update_lrs`` each step's."""
+        T, n = batch["obs"].shape[:2]
+        total = T * self.num_envs if self.mesh is not None else T * n
         mb_size = total // self.minibatches
-        flat = {k: v.reshape(total, *v.shape[2:]) for k, v in batch.items()}
+        flat = {k: v.reshape(T * n, *v.shape[2:]) for k, v in batch.items()}
+        rows = self._minibatch_rows(T, n, mb_size)
         params = list(self.model.parameters())
         lr = np.float32(self.lr)
         metrics, self.update_lrs = [], []
         for _ in range(self.epochs):
             for i in range(self.minibatches):
-                mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in flat.items()}
-                loss, parts = self._loss(mb)
+                if rows is None:
+                    mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in flat.items()}
+                    loss, parts = self._loss(mb)
+                else:
+                    mb = {k: v.index_select(0, rows[i]) for k, v in flat.items()}
+                    loss, parts = self._loss(mb, count=mb_size)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                if rows is not None:
+                    loss, parts = self._reduce(params, loss, parts)
                 if self.adaptive:
                     lr = self._next_lr(lr, parts[3].item())
                 clip_by_global_norm_(params, self.max_grad_norm)
@@ -404,6 +447,36 @@ class PPO:
                 self.update_lrs.append(float(lr))
         self.lr = float(lr)
         return torch.stack(metrics).mean(0)
+
+    def _minibatch_rows(self, T: int, n: int, mb_size: int):
+        """With a mesh, per minibatch the rows of this rank's (T * n) flat
+        block that fall in the global minibatch, a slice of the global
+        (T * N) flattening: row t * N + offset + j holds step t of the
+        rank's env j. None without a mesh."""
+        if self.mesh is None:
+            return None
+        if n * self.mesh.size(0) != self.num_envs:
+            raise ValueError(f"the batch holds {n} envs; a dp block of {self.num_envs} "
+                             f"envs over dp={self.mesh.size(0)} holds "
+                             f"{self.num_envs // self.mesh.size(0)}")
+        offset = self.mesh.get_local_rank("dp") * n
+        g = (torch.arange(T, device=self.device)[:, None] * self.num_envs + offset
+             + torch.arange(n, device=self.device)[None, :]).reshape(-1)
+        return [torch.nonzero((g >= i * mb_size) & (g < (i + 1) * mb_size))[:, 0]
+                for i in range(self.minibatches)]
+
+    def _reduce(self, params, loss, parts):
+        """Sum the gradients, the loss and its parts over the dp sub-group
+        in one all-reduce; returns the global (loss, parts)."""
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().reshape(1)] + [x.detach().reshape(1) for x in parts])
+        dist.all_reduce(flat, group=self.mesh.get_group("dp"))
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[offset], list(flat[offset + 1:])
 
     def _batch(self, returns, advantages) -> Dict[str, torch.Tensor]:
         s = self.storage
@@ -470,7 +543,10 @@ class PPO:
                     returns, advantages = compute_gae(
                         dev(self.storage.rewards), dev(self.storage.dones),
                         dev(self.storage.values), last_value, self.gamma, self.lam)
-                metrics = self._update(self._batch(returns, advantages)).cpu().numpy()
+                batch = self._batch(returns, advantages)
+                if self.mesh is not None:
+                    batch = shard_batch(batch, self.mesh, dim=1)
+                metrics = self._update(batch).cpu().numpy()
             learn_time = time.time() - t1
             self.tot_timesteps += self.num_transitions * self.num_envs
             self.history.append({"it": it, "collect_s": collection_time,

@@ -5,7 +5,9 @@ copies of the JAX package's that the port's slices run).
 A root ``config.yaml`` names a default per group; CLI arguments either swap
 a group (``task=open_drawer``) or override a leaf with a dotted path
 (``task.num_envs=4``). The composed result is a plain nested dict.
-``load_group`` loads one group file on its own.
+``load_group`` loads one group file on its own. Each takes ``cfg_root``,
+another tree to compose from (a generated one: ``generate_cfg.py``), for
+that call only.
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ class ConfigError(ValueError):
 
 def _load_yaml(path: str) -> Dict[str, Any]:
     if not os.path.exists(path):
-        raise ConfigError(f"config file not found: {path} (the port carries the "
-                          f"config groups of its ported slices, ROADMAP.md Queue 1)")
+        raise ConfigError(f"config file not found: {path}")
     with open(path) as f:
         return yaml.safe_load(f) or {}
 
@@ -42,17 +43,19 @@ def _set_dotted(cfg: Dict[str, Any], dotted: str, value: Any) -> None:
     node[keys[-1]] = value
 
 
-def load_group(group: str, name: str,
-               overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Load ``cfg/<group>/<name>.yaml`` and apply ``{"a.b": value}``
-    overrides to its leaves."""
-    cfg = copy.deepcopy(_load_yaml(os.path.join(CFG_ROOT, group, f"{name}.yaml")))
+def load_group(group: str, name: str, overrides: Optional[Dict[str, Any]] = None,
+               cfg_root: Optional[str] = None) -> Dict[str, Any]:
+    """Load ``<cfg_root>/<group>/<name>.yaml`` (``CFG_ROOT`` by default) and
+    apply ``{"a.b": value}`` overrides to its leaves."""
+    path = os.path.join(cfg_root or CFG_ROOT, group, f"{name}.yaml")
+    cfg = copy.deepcopy(_load_yaml(path))
     for dotted, value in (overrides or {}).items():
         _set_dotted(cfg, dotted, value)
     return cfg
 
 
-def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> Dict[str, Any]:
+def apply_overrides(cfg: Dict[str, Any], overrides: List[str],
+                    cfg_root: Optional[str] = None) -> Dict[str, Any]:
     """Apply CLI overrides with Hydra's two-phase semantics: ALL group
     selections (``controller=rl``) first, then ALL dotted value overrides
     (``controller.load=...``), regardless of CLI order, so that a trailing
@@ -65,7 +68,7 @@ def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> Dict[str, Any]
             raise ConfigError(f"override must be key=value, got {ov!r}")
         key, _, val = ov.partition("=")
         if key in GROUPS:
-            cfg[key] = load_group(key, val)
+            cfg[key] = load_group(key, val, cfg_root=cfg_root)
         else:
             dotted.append((key, val))
     for key, val in dotted:
@@ -73,16 +76,20 @@ def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> Dict[str, Any]
     return cfg
 
 
-def load_config(overrides: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Compose the root defaults, the group files and the CLI overrides."""
-    root = _load_yaml(os.path.join(CFG_ROOT, "config.yaml"))
+def load_config(overrides: Optional[List[str]] = None,
+                cfg_root: Optional[str] = None) -> Dict[str, Any]:
+    """Compose the root defaults, the group files and the CLI overrides,
+    from ``cfg_root`` when given (for this call only: the JAX package's
+    ``load_config`` also makes it the module's ``CFG_ROOT`` for every later
+    call), else from ``CFG_ROOT``."""
+    root = _load_yaml(os.path.join(cfg_root or CFG_ROOT, "config.yaml"))
     defaults = root.pop("defaults", {})
     cfg: Dict[str, Any] = dict(root)
     for group in GROUPS:
         name = defaults.get(group)
-        cfg[group] = None if name is None else load_group(group, name)
+        cfg[group] = None if name is None else load_group(group, name, cfg_root=cfg_root)
     if overrides:
-        cfg = apply_overrides(cfg, overrides)
+        cfg = apply_overrides(cfg, overrides, cfg_root)
     for group in GROUPS:
         if cfg.get(group) is None:
             raise ConfigError(f"config group '{group}' unset: pass {group}=<name>")

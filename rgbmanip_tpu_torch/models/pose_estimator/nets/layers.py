@@ -53,12 +53,45 @@ class Conv2d(nn.Conv2d):
         return _apply(self, self._conv_forward, x, (-1, 1, 1))
 
 
+class _Bf16Conv3dOnCpu(torch.autograd.Function):
+    """``F.conv3d`` of a bf16 ``x`` and ``w`` on the CPU, whose weight
+    gradient is computed in f32 from the same bf16 values and rounded once to
+    bf16: the f32 sum that the bf16 kernel accumulates, without that kernel.
+    PyTorch 2.11's CPU bf16 weight-gradient kernel (oneDNN) now and then
+    leaves elements of it unwritten at the CostRegNet's 2x3x3 volume, so
+    they hold NaN or whatever the memory held
+    (``scripts/cpu_bf16_conv_probe.py`` counts it). The forward and the input
+    gradient are the bf16 kernels'."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, groups)
+        return F.conv3d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv3d_input(x.shape, w, grad, *ctx.conf)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv3d_weight(x.float(), w.shape, grad.float(),
+                                             *ctx.conf).to(w.dtype)
+        return gx, gw, None, None, None, None
+
+
 class Conv3d(nn.Conv3d):
     def __init__(self, *args, dtype=torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
 
     def forward(self, x):
+        if x.device.type == "cpu" and self.compute_dtype == torch.bfloat16:
+            def conv(x, w, b):      # b is None: _apply adds a bf16 bias after
+                return _Bf16Conv3dOnCpu.apply(x, w, self.stride, self.padding,
+                                              self.dilation, self.groups)
+            return _apply(self, conv, x, (-1, 1, 1, 1))
         return _apply(self, self._conv_forward, x, (-1, 1, 1, 1))
 
 

@@ -39,6 +39,7 @@ this module ports ``CostRegNet``.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -178,6 +179,25 @@ def avg_pool(f, k: int):
     return s / (k * k)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of ``group``; its backward sums the
+    gradient over them too, so that each rank's share of the statistics
+    carries every rank's loss gradient, as GSPMD's reduction does."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class FlaxBatchNorm3d(nn.BatchNorm3d):
     """flax's ``nn.BatchNorm(momentum, epsilon=1e-5, dtype)`` over (B, C, D,
     H, W): the statistics and the normalisation in f32 (the batch's mean and
@@ -186,12 +206,21 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
     result in ``dtype``; in eval mode at f32, ``nn.BatchNorm3d``. Train mode
     updates ``running = momentum * running +
     (1 - momentum) * batch`` with the biased variance (``nn.BatchNorm3d``
-    would update with the unbiased one)."""
+    would update with the unbiased one).
+
+    ``process_group``: when set (a dp sub-group, by ``EstimatorTrainer``
+    with a mesh), train mode takes ``E[x]`` and ``E[x^2]`` over the whole
+    batch of the group's ranks, as the JAX package's BatchNorm of a
+    dp-sharded batch does under GSPMD: the per-rank sums and element count
+    are summed over the group, with a backward that sums too, and the
+    running statistics update from the global values. (``nn.SyncBatchNorm``
+    refuses CPU tensors and updates with the unbiased variance.)"""
 
     def __init__(self, num_features: int, momentum: float = 0.9, dtype=torch.float32):
         super().__init__(num_features, eps=1e-5)
         self.decay = momentum
         self.compute_dtype = dtype
+        self.process_group = None
 
     def forward(self, x):
         if not self.training and x.dtype == self.compute_dtype == torch.float32:
@@ -200,8 +229,15 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
         x = x.float()
         if self.training:
             dims = (0, 2, 3, 4)
-            mean = x.mean(dims)
-            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            if self.process_group is None:
+                mean, mean2 = x.mean(dims), (x * x).mean(dims)
+            else:
+                C = x.shape[1]
+                sums = torch.cat([x.sum(dims), (x * x).sum(dims),
+                                  x.new_full((1,), x.numel() // C)])
+                sums = _AllReduceSum.apply(sums, self.process_group)
+                mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.decay * self.running_mean + (1 - self.decay) * mean)
                 self.running_var.copy_(self.decay * self.running_var + (1 - self.decay) * var)

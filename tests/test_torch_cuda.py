@@ -3,7 +3,8 @@ versions, and the estimates (flagship and paper-size) and the policy on the
 card against the CPU.
 
 These tests need an NVIDIA card and skip without one (a CUDA kernel has no
-CPU mode). The file imports neither JAX nor the JAX package, so it runs on
+CPU mode), but for one that holds the port's CPU bf16 path on that
+machine's PyTorch and runs anywhere. The file imports neither JAX nor the JAX package, so it runs on
 the machine with the card:  python -m pytest tests/test_torch_cuda.py -q
 """
 
@@ -801,3 +802,112 @@ def test_realworld_estimate_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
         np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)
         assert (out["cuda"][0] >= 9.0).all() == sentinel
+
+
+def sharded_estimator_step(rank, world):
+    """One estimator step on the card over a 1x1 mesh (``graft_entry``'s
+    tiny dryrun network and batch): the BatchNorms' group path."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets.stereo import FlaxBatchNorm3d
+    from rgbmanip_tpu_torch.parallel.mesh import make_mesh
+
+    out = graft_entry_step(torch.device("cuda"), make_mesh(world))
+    bns = [m for m in out.pop("model").modules() if isinstance(m, FlaxBatchNorm3d)]
+    out["grouped"] = bool(bns) and all(m.process_group is not None for m in bns)
+    return out
+
+
+def graft_entry_step(dev, mesh=None):
+    """(loss, parts, BatchNorm running statistics, parameters) of one step
+    of the resnet18 estimator at the JAX module's defaults, B=2, 32 px."""
+    from rgbmanip_tpu_torch import graft_entry
+    from rgbmanip_tpu_torch.models.pose_estimator.nets.stereo import (
+        FlaxBatchNorm3d, StereoPoseNetWithDepth, flax_init_)
+    from rgbmanip_tpu_torch.models.pose_estimator.training import (EstimatorTrainer,
+                                                                   synthetic_batch)
+    from rgbmanip_tpu_torch.parallel.mesh import (apply_shardings, full_parameters,
+                                                  param_shardings)
+
+    model = StereoPoseNetWithDepth(backend="resnet18", regress_pose=True,
+                                   **graft_entry.JAX_NET_DEFAULTS)
+    flax_init_(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    batch = {k: v.to(dev) for k, v in
+             synthetic_batch(torch.Generator().manual_seed(0), 2, 32, 64, n_depth=8).items()}
+    if mesh is not None:
+        apply_shardings(model, param_shardings(model, mesh))
+    total, parts = EstimatorTrainer(model, mesh=mesh).step(batch)
+    stats = {f"{n}.{b}": getattr(m, b).cpu() for n, m in model.named_modules()
+             if isinstance(m, FlaxBatchNorm3d) for b in ("running_mean", "running_var")}
+    params = {n: p.detach().cpu() for n, p in full_parameters(model).items()}
+    return {"total": total, "parts": parts, "stats": stats, "params": params, "model": model}
+
+
+def test_batchnorm_group_path_at_world_1_matches_the_plain_step(cuda):
+    """An estimator step through a one-rank NCCL mesh (the BatchNorms' sums
+    all-reduced over the dp group, the gradients and loss reduced, the
+    parameters DTensors) against the same step without a mesh, both on the
+    card: loss and parts 1e-5 relative, running statistics 1e-4 plus 1e-5,
+    parameters within two learning rates (Adam's first step)."""
+    from rgbmanip_tpu_torch.parallel.launch import run_ranks
+
+    sharded = run_ranks(sharded_estimator_step, 1, "cuda")[0]
+    plain = graft_entry_step(cuda)
+    assert sharded["grouped"]
+    np.testing.assert_allclose(sharded["total"], plain["total"], rtol=1e-5)
+    for k, v in plain["parts"].items():
+        np.testing.assert_allclose(sharded["parts"][k], v, rtol=1e-5, err_msg=k)
+    for k, v in plain["stats"].items():
+        np.testing.assert_allclose(sharded["stats"][k].numpy(), v.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    for k, v in plain["params"].items():
+        assert float((sharded["params"][k] - v).abs().max()) <= 2.1e-4, k
+
+
+def test_entry_forward_on_card_matches_cpu(cuda):
+    """``graft_entry.entry()``'s bf16 forward (resnet34 at the JAX module's
+    defaults, B=2, 224 px) on the card against the CPU, per output: the
+    mean |card - CPU| of the bf16 forwards within twice the CPU's own mean
+    bf16-to-f32 difference, and the card's own bf16-to-f32 difference at
+    least half the CPU's (``chip_smoke.py`` phase 20's rule)."""
+    from rgbmanip_tpu_torch import graft_entry
+
+    def run(device):
+        forward, args = graft_entry.entry(device=device)
+        net = graft_entry.flagship_net(torch.float32, device)
+        with torch.no_grad():
+            out32 = net(*args)
+        out16 = forward(*args)
+        return ([o.float().cpu() for o in out16],
+                [out32[n].float().cpu() for n in ("view1_nocs", "view1_depth", "view1_r")],
+                out16)
+
+    card16, card32, raw = run(cuda)
+    assert [o.dtype for o in raw] == [torch.bfloat16, torch.float32, torch.bfloat16]
+    assert all(o.is_cuda and torch.isfinite(o.float()).all() for o in raw)
+    cpu16, cpu32, _ = run(torch.device("cpu"))
+    for c16, c32, p16, p32 in zip(card16, card32, cpu16, cpu32):
+        gap = float((p16 - p32).abs().mean())
+        assert float((c16 - p16).abs().mean()) <= 2 * gap
+        assert float((c16 - c32).abs().mean()) >= 0.5 * gap
+
+
+def test_bf16_conv3d_weight_gradient_on_the_cpu_stays_finite():
+    """The port's bf16 ``Conv3d`` on the CPU at the CostRegNet's conv6 shape
+    (64 -> 64 channels over a 2x3x3 volume): 300 calls, each after NaN-filled
+    memory was freed, give a finite weight gradient
+    (``nets/layers.py::_Bf16Conv3dOnCpu``). PyTorch 2.11's own CPU bf16
+    weight-gradient kernel gives a non-finite one in a quarter to over half
+    of such calls (``scripts/cpu_bf16_conv_probe.py``). Runs on the CPU, so
+    also without a card."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets.layers import Conv3d
+
+    torch.manual_seed(0)
+    m = Conv3d(64, 64, 3, 1, padding=1, bias=False, dtype=torch.bfloat16)
+    bad = 0
+    for _ in range(300):
+        junk = [torch.full((1 << k,), float("nan")) for k in range(10, 22)]
+        del junk
+        m.weight.grad = None
+        (m(torch.randn(2, 64, 2, 3, 3)).float() ** 2).sum().backward()
+        bad += int(not torch.isfinite(m.weight.grad).all())
+    assert bad == 0

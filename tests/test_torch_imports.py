@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     for m in ("models.pose_estimator.adapose", "sim.bindings", "envs.vec_env",
-              "assets.procedural", "train"):
+              "assets.procedural", "train", "config.generate_cfg", "parallel.mesh",
+              "parallel.launch", "graft_entry"):
         assert f"rgbmanip_tpu_torch.{m}" in loaded
 
 

@@ -193,3 +193,47 @@ def test_ortho6d_matches_jax():
     out = port_stereo.ortho6d_to_mat(torch.from_numpy(r6[:, :3]),
                                      torch.from_numpy(r6[:, 3:])).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape, stride", [((2, 64, 2, 3, 3), 1), ((2, 32, 4, 6, 6), 2)],
+                         ids=["conv6", "conv5"])
+def test_bf16_conv3d_on_the_cpu_takes_its_weight_gradient_in_f32(shape, stride):
+    """The CostRegNet's bf16 ``Conv3d`` on the CPU at its smallest volume
+    (the flagship's conv5 and conv6): the forward and the input gradient are
+    the bf16 kernel's bit for bit; the weight gradient is the f32 gradient
+    of the same bf16 values rounded once, within one bf16 ulp of the bf16
+    kernel's where that kernel is sound (PyTorch 2.11's leaves elements of
+    it unwritten now and then on the card's machine)."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets.layers import Conv3d
+
+    g = torch.Generator().manual_seed(0)
+    m = Conv3d(shape[1], 64, 3, stride, padding=1, bias=False, dtype=torch.bfloat16)
+    with torch.no_grad():
+        m.weight.copy_(0.05 * torch.randn(m.weight.shape, generator=g))
+    x = torch.randn(shape, generator=g).requires_grad_()
+    y = m(x)
+    up = torch.randn(y.shape, generator=g)
+    (y.float() * up).sum().backward()
+
+    xb = x.detach().to(torch.bfloat16).requires_grad_()
+    wb = m.weight.detach().to(torch.bfloat16).requires_grad_()
+    ref = torch.nn.functional.conv3d(xb, wb, None, stride, 1)
+    (ref.float() * up).sum().backward()
+    assert torch.equal(y, ref)
+    assert torch.equal(x.grad, xb.grad.float())
+    f32 = torch.nn.grad.conv3d_weight(xb.detach().float(), wb.shape, up.to(torch.bfloat16).float(),
+                                      stride, 1)
+    assert torch.equal(m.weight.grad, f32.to(torch.bfloat16).float())
+    ulp = torch.exp2(torch.floor(torch.log2(wb.grad.float().abs().clamp_min(1e-30))) - 7)
+    assert ((m.weight.grad - wb.grad.float()).abs() <= ulp).all()
+
+
+def test_cpu_bf16_conv_probe_counts_the_ports_calls_whole():
+    """``scripts/cpu_bf16_conv_probe.py`` at 20 calls: the port's layer
+    never gives a non-finite weight gradient (PyTorch 2.11's own kernel, on
+    the card's machine, did in a quarter to over half of 300 calls)."""
+    from rgbmanip_tpu_torch.scripts import cpu_bf16_conv_probe
+
+    out = cpu_bf16_conv_probe.main(["--calls", "20"])
+    assert out["B=2"]["port"] == out["B=8"]["port"] == 0
+    assert out["calls"] == 20 and out["torch"] == torch.__version__
