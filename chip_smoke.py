@@ -36,7 +36,9 @@ eighth slice: the RL skill (``manipulation=rl``, trained and played), the
 URDF fixture datasets (the gt stack on all four, a flagship round on the
 cabinet) and the real-world env with fake drivers. Then the last modules:
 the config generator and multi-device training (``graft_entry``'s
-``entry`` and ``dryrun_multichip``). The estimator's trainer
+``entry`` and ``dryrun_multichip``), and the scripts that produce and
+explain the results table: the evaluation sweep and the failure
+diagnostics. The estimator's trainer
 crops with K1's clamping border mode, as the JAX package's trainer crops
 on its CPU backend. Each path runs with every launch counter set to 0 just
 before it and read just after. Phases:
@@ -139,6 +141,17 @@ before it and read just after. Phases:
      the CPU at 1e-4 relative, and the ms per sharded step beside the
      unsharded step's on the card. Neither path launches K1 or K5 (the
      dryrun's batches come cropped, as the JAX dryrun's do)
+ 21. the evaluation sweep and the failure diagnostics
+     (``rgbmanip_tpu_torch/scripts/``), each through its ``main`` or the
+     sweep's own row loop, with every launch counter set to 0 just before
+     each run and read just after: ``eval_sweep.main`` at one round of 8
+     over all 16 gt rows on the card and on the CPU, equal row for row; one
+     heuristic + AdaPose row of the sweep per estimator family (cabinet,
+     drawer, pot, mug; K1 twice per estimate); ``diag_flagship.main`` at one
+     round of 8 (K1 twice per recorded estimate of the RL and the heuristic
+     run); ``trace_mug_learned.main`` at one round (K1 twice). It fails on
+     any error row or failed run and on a learned-stack run with no K1
+     launch, and prints each run's seconds
 
 Phase 3 also holds K1 against its plain version on a reversed window (an
 empty mask gives a window of negative side), and K1's clamping border mode
@@ -161,11 +174,13 @@ prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
 import sys
 import time
+from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H, W = 480, 640
@@ -256,6 +271,16 @@ GEN_NOT_WRITTEN = {"dataset/mug_urdf_fixture.yaml", "pose_estimator/adapose_cabi
 GEN_HAND_EDITED = {"manipulation/close_cabinet.yaml", "manipulation/close_drawer.yaml",
                    "controller/rl.yaml"}
 DRYRUN_RTOL = 1e-4             # phase 20: the sharded steps on the card against the CPU
+# phase 21: the evaluation sweep (scripts/eval_sweep.py's rows) and the diagnostics;
+# one heuristic + AdaPose row per estimator family, with its committed estimator
+SWEEP_ROUNDS = 8               # one round of the sweep's 8 envs per row
+SWEEP_FAMILIES = {
+    "cabinet": (("open_cabinet", "open_cabinet", [("test", "cabinet_test")]),
+                [f"pose_estimator.checkpoint_path={CKPT_EST}"]),
+    "drawer": (("open_drawer", "open_drawer", [("test", "drawer_test")]), []),
+    "pot": (("open_pot", "open_pot", [("test", "pot_test")]), []),
+    "mug": (("pick_mug", "pick_mug", [("test", "mug_test")]), []),
+}
 
 
 class SmokeError(RuntimeError):
@@ -1889,6 +1914,87 @@ def multi_device(np, torch, dev, card):
     return launches
 
 
+# ------------------------------ phase 21: the sweep and the diagnostics --
+def sweep_and_diagnostics(np, card):
+    """Phase 21: the evaluation sweep and the failure diagnostics through the
+    port's scripts, each run with every launch counter set to 0 just before
+    it and read just after. Returns K1's launches over the learned-stack
+    runs."""
+    from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import row_gather as k5
+    from rgbmanip_tpu_torch.scripts import diag_flagship, eval_sweep, trace_mug_learned
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+
+    def counted(what, fn):
+        zero_k1_counters(k1)
+        k5.row_gather.launches = 0
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except SystemExit as e:       # a script's non-zero exit
+            raise SmokeError(f"{what}: {e}")
+        secs = time.perf_counter() - t0
+        return out, k1.crop_resize_normalize.launches, secs
+
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "build", "phase21")
+    sweeps = {}
+    for name in ("cuda", "cpu"):
+        os.makedirs(os.path.join(work, name), exist_ok=True)
+        with contextlib.chdir(os.path.join(work, name)):   # the sweep writes docs/ here
+            out, n, secs = counted(f"eval_sweep on {name}", lambda: eval_sweep.main(
+                [str(SWEEP_ROUNDS), "gt_pose", "ground_truth", f"device={name}"]))
+        sweeps[name] = out["results"]
+        check(len(out["results"]) == 16 and n == 0,
+              f"the gt sweep on {name}: {len(out['results'])} rows, K1 {n} launches")
+        say("sweep", f"eval_sweep {SWEEP_ROUNDS} gt_pose ground_truth device={name}: 16 rows "
+            f"of {SWEEP_ROUNDS} episodes in {secs:.1f} s, no error row")
+    same = sweeps["cuda"] == sweeps["cpu"]
+    say("sweep", f"gt rows on the card equal the CPU's, row for row: {same}; "
+        + ", ".join(f"{k} {v['success']:.2f}%" for k, v in sweeps["cuda"].items()))
+    check(same, "the gt sweep on the card differs from the CPU's")
+
+    total, log = 0, get_logger()
+    for family, (row, passthru) in SWEEP_FAMILIES.items():
+        est = f"adapose_{family}_fast"
+        res, n, secs = counted(f"{family} row", lambda: eval_sweep.sweep(
+            [row], SWEEP_ROUNDS, "heuristic_pose", est, passthru + ["device=cuda"], log))
+        (key, r), = res.items()
+        check("error" not in r, f"heuristic + {est} row {key}: {r.get('error')}")
+        check(n == 2, f"heuristic + {est} row {key}: K1 launched {n} times; one estimate "
+              f"of the round launches it twice")
+        total += n
+        say("sweep", f"{card} | heuristic_pose + {est} row {key} on the card: success "
+            f"{r['success']:.2f}% over {r['episodes']} episodes (not gated), move "
+            f"{r['move']:.3f} m, {secs:.1f} s with the estimator's load; K1 {n} launches")
+
+    with mock.patch.dict(os.environ, EST_CKPT=CKPT_EST):     # as scripts/r5_stageD.sh:18
+        out, n, secs = counted("diag_flagship", lambda: diag_flagship.main(
+            [CKPT_POLICY, "1", "8", "device=cuda"]))
+    n_est = (len(out["rl"].rows) + len(out["heuristic"].rows)) // 8
+    check(n_est > 0 and n == 2 * n_est, f"diag_flagship: K1 launched {n} times in {n_est} "
+          f"recorded estimates (twice per estimate)")
+    rows = np.array(out["rl"].rows + out["heuristic"].rows)
+    check(np.isfinite(rows).all(), "diag_flagship recorded non-finite rows")
+    total += n
+    say("diag", f"{card} | diag_flagship {CKPT_POLICY} 1 8 with {CKPT_EST} on the card: "
+        f"{n_est} estimates recorded (RL {len(out['rl'].rows) // 8}, heuristic "
+        f"{len(out['heuristic'].rows) // 8}), success RL {out['rl_success']}/8 heuristic "
+        f"{out['heuristic_success']}/8 (not gated); {secs:.1f} s; K1 {n} launches")
+
+    rows, n, secs = counted("trace_mug_learned", lambda: trace_mug_learned.main(
+        ["mug_test", "1", "device=cuda"]))
+    check(len(rows) == 8 and np.isfinite(np.array(rows, np.float64)).all(),
+          f"trace_mug_learned: {len(rows)} rows")
+    check(n == 2, f"trace_mug_learned: K1 launched {n} times in one round (twice)")
+    total += n
+    say("trace", f"{card} | trace_mug_learned mug_test 1 on the card: 8 episodes, "
+        f"{secs:.1f} s; K1 {n} launches")
+    say("phase21", f"the sweep and the diagnostics in {time.perf_counter() - t_phase:.1f} s; "
+        f"K1 {total} launches over the learned-stack runs")
+    return total
+
+
 def k1_bf16_timing(torch, F, rgb, win, S, card):
     """Phase 15: K1's bf16 entry point's device time at the flagship bf16
     estimate's B=8 frames and windows, beside its bound (bf16 output), its
@@ -2653,6 +2759,9 @@ def run():
     check(entry_launches == dryrun_launches == (0, 0),
           f"entry() and the dryrun launched (K1, K5) {entry_launches} and {dryrun_launches}")
 
+    # 21. the evaluation sweep and the failure diagnostics ------------------------
+    sweep_launches = sweep_and_diagnostics(np, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
@@ -2660,7 +2769,8 @@ def run():
         "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
         "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
         "launches": (eval_launches["crop_resize_normalize"] + ppo_launches + heur_launches
-                     + inf_launches + gen_launches + urdf_launches + realworld_launches),
+                     + inf_launches + gen_launches + urdf_launches + realworld_launches
+                     + sweep_launches),
         "max_abs_err": max(err, eval_err, heur_err),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],

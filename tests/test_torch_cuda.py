@@ -911,3 +911,38 @@ def test_bf16_conv3d_weight_gradient_on_the_cpu_stays_finite():
         (m(torch.randn(2, 64, 2, 3, 3)).float() ** 2).sum().backward()
         bad += int(not torch.isfinite(m.weight.grad).all())
     assert bad == 0
+
+
+def test_a_gt_sweep_row_on_card_equals_cpu(cuda, monkeypatch, tmp_path):
+    """``eval_sweep``'s gt stack (no network) gives the same row with
+    ``device=cuda`` as with ``device=cpu``; the committed JSON is not read
+    or written (the sweep writes ``docs/sweep_torch_*`` under the working
+    directory)."""
+    from rgbmanip_tpu_torch.scripts import eval_sweep
+
+    rows = [("open_drawer", "open_drawer", [("test", "drawer_test")])]
+    monkeypatch.setattr(eval_sweep, "ROWS", rows)
+    out = {}
+    for name in ("cuda", "cpu"):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        out[name] = eval_sweep.main(["8", "gt_pose", "ground_truth", f"device={name}"])
+        assert os.path.exists("docs/sweep_torch_gt_pose_ground_truth.json")
+    assert out["cuda"]["results"] == out["cpu"]["results"]
+    assert out["cuda"]["results"]["open_drawer/test"]["episodes"] == 8
+
+
+def test_a_learned_sweep_row_launches_k1(cuda, monkeypatch, tmp_path):
+    """A heuristic + AdaPose row of the sweep (pot) runs its estimate on the
+    card through K1: one estimate of the batch, K1 twice."""
+    from rgbmanip_tpu_torch.scripts import eval_sweep
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+
+    rows = [("open_pot", "open_pot", [("test", "pot_test")])]
+    monkeypatch.chdir(tmp_path)
+    k1.crop_resize_normalize.launches = 0
+    res = eval_sweep.sweep(rows, 8, "heuristic_pose", "adapose_pot_fast", ["device=cuda"],
+                           get_logger())
+    assert "error" not in res["open_pot/test"], res
+    assert res["open_pot/test"]["episodes"] == 8
+    assert k1.crop_resize_normalize.launches == 2

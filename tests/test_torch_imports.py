@@ -2,6 +2,7 @@
 chip_smoke.py's own imports) pulls in neither JAX, flax, optax nor the JAX
 package; entry points default to the card."""
 
+import importlib
 import json
 import os
 import pkgutil
@@ -41,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
     assert not bad, bad
     for m in ("models.pose_estimator.adapose", "sim.bindings", "envs.vec_env",
               "assets.procedural", "train", "config.generate_cfg", "parallel.mesh",
-              "parallel.launch", "graft_entry"):
+              "parallel.launch", "graft_entry", "scripts.eval_sweep",
+              "scripts.diag_flagship", "scripts.trace_close", "scripts.trace_drawer",
+              "scripts.trace_mug", "scripts.trace_mug_learned", "scripts.patch_ckpt_meta",
+              "scripts.plot_results"):
         assert f"rgbmanip_tpu_torch.{m}" in loaded
 
 
@@ -83,3 +87,20 @@ def test_chip_smoke_without_a_card_fails_and_prints_no_result():
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("diag_flagship", ["checkpoints/ppo_rl_coadapt_model_165.ckpt", "1", "1"]),
+    ("trace_close", ["close_cabinet", "1"]),
+    ("trace_drawer", ["drawer_train", "1"]),
+    ("trace_mug", ["mug_train", "1"]),
+    ("trace_mug_learned", ["mug_test", "1"]),
+])
+def test_the_diagnostic_scripts_default_to_the_card(script, argv):
+    """Each raises before it builds an env unless ``device=cpu`` is passed
+    (the sweep's rows: tests/test_torch_eval_sweep.py)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    mod = importlib.import_module(f"rgbmanip_tpu_torch.scripts.{script}")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(argv)
