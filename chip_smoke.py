@@ -38,7 +38,9 @@ cabinet) and the real-world env with fake drivers. Then the last modules:
 the config generator and multi-device training (``graft_entry``'s
 ``entry`` and ``dryrun_multichip``), and the scripts that produce and
 explain the results table: the evaluation sweep and the failure
-diagnostics. The estimator's trainer
+diagnostics; last, the JAX package's timing scripts as the port runs them
+(``rgbmanip_tpu_torch.bench`` and ``rgbmanip_tpu_torch/scripts/bench_*.py``),
+each in its own process. The estimator's trainer
 crops with K1's clamping border mode, as the JAX package's trainer crops
 on its CPU backend. Each path runs with every launch counter set to 0 just
 before it and read just after. Phases:
@@ -152,6 +154,23 @@ before it and read just after. Phases:
      run); ``trace_mug_learned.main`` at one round (K1 twice). It fails on
      any error row or failed run and on a learned-stack run with no K1
      launch, and prints each run's seconds
+ 22. the timing scripts, each at a short size in its own process on the
+     card, the five side by side (``TIMING_SCRIPTS``; their times are not
+     measurements then): ``python -m rgbmanip_tpu_torch.bench`` at
+     B=8 and 64 (iters 2, reps 1; with its f32 B=64, B=8 and bf16 B=8 rows),
+     ``bench_estimate`` ``FAST`` at B=16, ``bench_ppo_update``,
+     ``bench_ppo_iter`` at 8 envs for one iteration and
+     ``bench_sim_scaling`` at 1 and 8 envs for one cycle. It fails on a
+     non-zero exit and on any printed number that is not finite and
+     positive; it reads the bench's K1 launches per row, counted in its
+     process by the wrapper with the counters set to 0 just before the row
+     (2 per estimate), and adds them to the kernels line; then it holds the
+     bench estimate at B=8 in f32 on the card against the same inputs and
+     draws on the CPU, on the bench's own views and with the second camera
+     raised 1 mm: valid flags equal, bbox within 1e-3 m. On the own views
+     the volume's first and last rows sit on the source's border, a tie
+     that each device's last bit breaks: the CPU replays the card's
+     decisions for those rays, after checking that no other ray's differs
 
 Phase 3 also holds K1 against its plain version on a reversed window (an
 empty mask gives a window of negative side), and K1's clamping border mode
@@ -176,9 +195,11 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import statistics
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -282,6 +303,24 @@ SWEEP_FAMILIES = {
     "mug": (("pick_mug", "pick_mug", [("test", "mug_test")]), []),
 }
 
+# phase 22: the timing scripts at a short size, each in its own process. The
+# bench runs on the flagship head, which has the bench's knobs
+# (``estimator_fast_cabinet_r2.ckpt``'s architecture), so that the smoke reads
+# no checkpoint beyond the other phases'
+TIMING_SCRIPTS = {
+    "bench": ["rgbmanip_tpu_torch.bench", "--batch", "8", "64", "--iters", "2", "--reps",
+              "1", "--checkpoint", CKPT_EST],
+    "bench_estimate": ["rgbmanip_tpu_torch.scripts.bench_estimate", "fast", "--batch", "16"],
+    "bench_ppo_update": ["rgbmanip_tpu_torch.scripts.bench_ppo_update", "--iters", "2",
+                         "--reps", "1"],
+    "bench_ppo_iter": ["rgbmanip_tpu_torch.scripts.bench_ppo_iter", "8", "1"],
+    "bench_sim_scaling": ["rgbmanip_tpu_torch.scripts.bench_sim_scaling", "--envs", "1",
+                          "8", "--threads", "--cycles", "1"],
+}
+BENCH_B_CPU = 8                # the bench estimate held card against CPU, f32
+TIE_PX = 1e-4                  # a ray this close to the source's border is a tie
+PROJ_TOL = 1e-3                # px between two devices' projections of one ray
+
 
 class SmokeError(RuntimeError):
     pass
@@ -296,15 +335,16 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def device_times(torch, fn, n=20, attempts=3):
+def device_times(torch, fn, n=20, attempts=10):
     """Device time per call, by kernel name: torch.profiler over ``n`` calls
     after one warm-up call. A profile now and then holds no device events at
-    all; the calls are then profiled again, up to ``attempts`` times."""
+    all, several in a row; the calls are then profiled again, up
+    to ``attempts`` times, and the retries are said."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -312,6 +352,8 @@ def device_times(torch, fn, n=20, attempts=3):
         out = {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
         if out:
+            if attempt:
+                say("profile", f"{attempt} empty profile(s) before this one")
             return out
     raise SmokeError(f"torch.profiler recorded no device time in {attempts} profiles")
 
@@ -1995,6 +2037,184 @@ def sweep_and_diagnostics(np, card):
     return total
 
 
+# ------------------------------------------- phase 22: the timing scripts --
+def script_rows(name, out):
+    """The JSON objects a timing script prints, one per line, and every
+    number in them by its place ("<line> <key> ..."); raises if there is
+    none."""
+    rows = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    check(rows, f"{name}: no JSON line in its output:\n{out[-2000:]}")
+
+    def numbers(v, at):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                yield from numbers(x, f"{at} {k}")
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield at.strip(), v
+
+    return rows, {k: v for i, r in enumerate(rows) for k, v in numbers(r, str(i))}
+
+
+def view2_raised(ext2):
+    """``bench.bench_inputs``' second extrinsics with the camera raised
+    1 mm. The bench's two views share their orientation and their crop rows,
+    so every ray of the cost volume's first and last rows lands exactly on
+    the source's top or bottom border, where each device's last bit decides
+    whether it falls inside; 1 mm moves those rays 0.04-0.9 px off the
+    border at every depth hypothesis."""
+    raised = ext2.clone()
+    raised[:, 1, 3] += 1e-3
+    return raised
+
+
+def estimate_projections(torch, est, inputs, replay=None):
+    """``est._estimate`` on ``inputs`` (moved to its device): its (bbox,
+    valid) as numpy, the plane sweep's projections (px, py, inside) of each
+    ``stereo._project`` call on the CPU, and how many in-or-out decisions
+    were taken from ``replay``: the projections of the same estimate on
+    another device. After checking that the two devices' coordinates agree
+    within PROJ_TOL px and that their decisions differ only for rays within
+    TIE_PX px of the source's border, where the last bit decides, each ray
+    whose decision differs takes ``replay``'s decision and coordinates."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    project, calls, taken = stereo._project, [], [0]
+
+    def projected(rot, trans, xyz, depth_values, H, W):
+        px, py, inside = project(rot, trans, xyz, depth_values, H, W)
+        calls.append(tuple(t.cpu() for t in (px, py, inside)))
+        if replay is None:
+            return px, py, inside
+        check(len(calls) <= len(replay), "the replayed estimate projects more often")
+        rpx, rpy, rin = replay[len(calls) - 1]
+        cpx, cpy, cin = calls[-1]
+        gap = max(float((cpx - rpx).abs().max()), float((cpy - rpy).abs().max()))
+        check(gap <= PROJ_TOL, f"the two devices' projections part by {gap:.3g} px")
+        tie = ((cpx.abs() < TIE_PX) | ((cpx - (W - 1)).abs() < TIE_PX)
+               | (cpy.abs() < TIE_PX) | ((cpy - (H - 1)).abs() < TIE_PX))
+        flip = cin != rin
+        check(not bool((flip & ~tie).any()), f"{int((flip & ~tie).sum())} in-or-out "
+              f"decisions differ for rays off the border")
+        taken[0] += int(flip.sum())
+        # a flipped ray takes the card's coordinates too: at the border the
+        # bilinear taps of py = -1e-7 and of +1e-7 are a row apart
+        return tuple(torch.where(flip, r, c).to(inside.device)
+                     for r, c in ((rpx, cpx), (rpy, cpy), (rin, cin)))
+
+    with mock.patch.object(stereo, "_project", projected):
+        bbox, valid, _ = est._estimate(*(t.to(est.device) for t in inputs))
+    check(replay is None or len(calls) == len(replay),
+          f"{len(calls)} projections against {len(replay or ())} replayed")
+    return (bbox.cpu().numpy(), valid.cpu().numpy()), calls, taken[0]
+
+
+def bench_card_against_cpu(np, torch, ests, B, raised):
+    """The bench's estimate (``rgbmanip_tpu_torch.bench``) at batch ``B``
+    on ``ests["card"]`` against ``ests["cpu"]`` (the same knobs, weights and
+    dtype): its inputs made on the card, the same point draws, on the
+    bench's own views or, if ``raised``, with view 2 raised 1 mm
+    (``view2_raised``). The CPU's run replays the card's border-tie
+    decisions (``estimate_projections``: only ties may differ), and then
+    the bbox must agree within 1e-3 m, the two-view rule of
+    ``tests/test_torch_estimator.py``, and the valid flags equal. Returns
+    (max |bbox diff| m, n valid, decisions replayed); raises on a
+    disagreement."""
+    from rgbmanip_tpu_torch import bench
+
+    g = torch.Generator().manual_seed(5)
+    u1, u2 = (torch.rand(B, ests["cpu"].img_size ** 2, generator=g) for _ in range(2))
+    K, rgb1, mask, ext1, rgb2, ext2 = bench.bench_inputs(B, bench.SEED, ests["card"].device)
+    if raised:
+        ext2 = view2_raised(ext2)
+    inputs = (K, rgb1, mask, ext1, rgb2, mask, ext2, u1, u2)
+    (cbox, cvalid), calls, _ = estimate_projections(torch, ests["card"], inputs)
+    (pbox, pvalid), _, taken = estimate_projections(torch, ests["cpu"], inputs, calls)
+    bdiff = float(np.abs(cbox - pbox).max())
+    check(np.isfinite(cbox).all() and (cvalid == pvalid).all() and bdiff <= 1e-3,
+          f"the bench estimate at B={B} (view 2 raised: {raised}): card and CPU disagree "
+          f"(valid {cvalid} / {pvalid}, max |bbox diff| {bdiff:.3g} m, limit 1e-3)")
+    return bdiff, int(cvalid.sum()), taken
+
+
+def timing_scripts(np, torch, dev, card):
+    """Phase 22: each timing script of the port at a short size in its own
+    process on the card (``TIMING_SCRIPTS``), all five side by side, so the
+    times they print check the scripts, not the card; every number of the
+    JSON lines they print finite and positive (K1's launch counts, checked
+    exactly, non-negative); the bench's K1 launches, counted by the wrapper
+    in its process with the counters set to 0 just before each row, 2 per
+    estimate; then the bench estimate at B=8 in f32 on the card against the
+    same inputs on the CPU (``bench_card_against_cpu``). Returns the bench's
+    K1 launches (f32, bf16)."""
+    import subprocess
+
+    from rgbmanip_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    procs, outs = {}, {}
+    with tempfile.TemporaryDirectory() as logs:
+        try:
+            for name, args in TIMING_SCRIPTS.items():    # all at once: each start-up takes seconds
+                with open(os.path.join(logs, f"{name}.out"), "w") as o, \
+                        open(os.path.join(logs, f"{name}.err"), "w") as e:
+                    procs[name] = subprocess.Popen([sys.executable, "-m", *args], cwd=REPO,
+                                                   stdout=o, stderr=e)
+            for p in procs.values():
+                p.wait(timeout=300)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for name in procs:
+            outs[name] = tuple(open(os.path.join(logs, f"{name}.{k}")).read()
+                               for k in ("out", "err"))
+    secs = time.perf_counter() - t_phase
+    launches = {"float32": 0, "bfloat16": 0}
+    for name, args in TIMING_SCRIPTS.items():
+        out, err = outs[name]
+        check(procs[name].returncode == 0, f"{name} exited {procs[name].returncode}:\n"
+              f"{out[-2000:]}\n{err[-3000:]}")
+        rows, nums = script_rows(name, out)
+        bad = {k: v for k, v in nums.items() if not (
+            math.isfinite(v) and (v > 0 or k.split()[-1].startswith("launches") and v == 0))}
+        check(not bad, f"{name}: numbers not finite and positive: {bad}")
+        if name == "bench":
+            last = rows[-1]
+            check(last.get("metric") == "pose_estimation_fps" and last["vs_baseline"] is None,
+                  f"bench: its last line is not the headline: {last}")
+            # the headline batches (--batch 8 64) print first, in bf16
+            best = max(rows[:2], key=lambda r: r["frames_per_s"])
+            check(f"(B={best['B']}, {torch.cuda.get_device_name(0)}, bf16," in last["unit"],
+                  f"bench: unit {last['unit']!r}")
+            for r in rows[:-1]:
+                bf16 = r["dtype"] == "bfloat16"
+                check(r["launches"] == 2 * r["estimates"]
+                      and r["launches_bf16"] == (r["launches"] if bf16 else 0),
+                      f"bench B={r['B']} {r['dtype']}: K1 launched {r['launches']} times "
+                      f"({r['launches_bf16']} bf16) in {r['estimates']} estimates; the "
+                      f"estimate launches it twice")
+                launches[r["dtype"]] += r["launches"]
+        if name == "bench_sim_scaling":
+            check([(r["n_envs"], r["n_threads"]) for r in rows] == [(1, 1), (8, 1)],
+                  f"bench_sim_scaling: rows {rows}")
+        say("scripts", f"{card} | {' '.join(args)} (side by side with the others: not "
+            f"a measurement): " + ", ".join(f"{k} {v:.6g}" for k, v in nums.items()))
+    say("scripts", f"the five scripts side by side in {secs:.1f} s")
+
+    ests = {k: bench.estimator(CKPT_EST, torch.float32, d)
+            for k, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    for raised, tag in ((False, "its own views"), (True, "view 2 raised 1 mm")):
+        bdiff, n_valid, taken = bench_card_against_cpu(np, torch, ests, BENCH_B_CPU, raised)
+        say("scripts", f"the bench estimate B={BENCH_B_CPU} f32 on {tag}, the same inputs and "
+            f"draws on the card and on the CPU, the card's {taken} border-tie decisions "
+            f"replayed on the CPU: max |bbox diff| {bdiff:.3g} m (limit 1e-3), valid flags "
+            f"equal ({n_valid}/{BENCH_B_CPU} valid)")
+    say("phase22", f"the timing scripts in {time.perf_counter() - t_phase:.1f} s; the "
+        f"bench's K1 launches: f32 {launches['float32']}, bf16 {launches['bfloat16']}")
+    return launches["float32"], launches["bfloat16"]
+
+
 def k1_bf16_timing(torch, F, rgb, win, S, card):
     """Phase 15: K1's bf16 entry point's device time at the flagship bf16
     estimate's B=8 frames and windows, beside its bound (bf16 output), its
@@ -2762,6 +2982,9 @@ def run():
     # 21. the evaluation sweep and the failure diagnostics ------------------------
     sweep_launches = sweep_and_diagnostics(np, card)
 
+    # 22. the timing scripts -------------------------------------------------------
+    bench_launches, bench_bf16_launches = timing_scripts(np, torch, dev, card)
+
     B, ms, bound, bound_by, err = rows[0]
     return card, {"kernels": [{
         "name": "crop_resize_normalize",
@@ -2770,7 +2993,7 @@ def run():
         "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
         "launches": (eval_launches["crop_resize_normalize"] + ppo_launches + heur_launches
                      + inf_launches + gen_launches + urdf_launches + realworld_launches
-                     + sweep_launches),
+                     + sweep_launches + bench_launches),
         "max_abs_err": max(err, eval_err, heur_err),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
@@ -2782,7 +3005,7 @@ def run():
         "route": "cuda",
         "source": "rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
         "replaces": "rgbmanip_tpu/ops/pallas_preprocess.py:55",
-        "launches": bf16_launches,
+        "launches": bf16_launches + bench_bf16_launches,
         "max_abs_err": bf16_err,
         "ms": k1_16_ms["kernel"],
         "plain_ms": k1_16_ms["plain"],

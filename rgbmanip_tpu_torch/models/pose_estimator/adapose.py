@@ -240,6 +240,11 @@ class AdaPoseEstimator(BasePoseEstimator):
         bbox = torch.where(valid[:, None, None], bbox_world, default)
         return bbox, valid, {"R_cam": R, "t_cam": tt, "scale": ts}
 
+    def append_picture(self, *args, **kwargs):
+        """Multi-view accumulation is handled by the caller's view queue
+        (``ControlInterface``); kept for API parity."""
+        return None
+
     def _call_estimate(self, camera_intrinsic, rgb1, mask1, ext1, rgb2, mask2, ext2):
         def dev(x, dtype=torch.float32):
             return torch.as_tensor(x, dtype=dtype, device=self.device)

@@ -12,3 +12,6 @@ class BasePoseEstimator:
     def estimate(self, *args, **kwargs):
         """Return (B, 8, 3) world-frame bbox corners of the target part."""
         raise NotImplementedError
+
+    def append_picture(self, *args, **kwargs):
+        raise NotImplementedError

@@ -946,3 +946,51 @@ def test_a_learned_sweep_row_launches_k1(cuda, monkeypatch, tmp_path):
     assert "error" not in res["open_pot/test"], res
     assert res["open_pot/test"]["episodes"] == 8
     assert k1.crop_resize_normalize.launches == 2
+
+
+# the bench's knobs on the flagship head (the same architecture as the
+# bench's own ``estimator_fast_cabinet_r2.ckpt``, which these tests need not read)
+BENCH_HEAD = "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"
+
+
+@pytest.mark.parametrize("raised", [False, True], ids=["own-views", "view2-raised"])
+def test_bench_estimate_on_card_matches_cpu(cuda, raised):
+    """``rgbmanip_tpu_torch.bench``'s estimate at B=8 in f32: its inputs, made
+    on the card, and the same point draws on the card and on the CPU, bbox
+    within 1e-3 m and equal valid flags, on the bench's own views and with
+    the second camera raised 1 mm (``chip_smoke.bench_card_against_cpu``,
+    which phase 22 runs). On the own views the cost volume's first and last
+    rows sit on a rounding tie at the source's border, which the CPU's run
+    takes from the card's after checking that no other ray's decision
+    differs; raised, no ray is on a tie."""
+    import sys
+
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from rgbmanip_tpu_torch import bench
+
+    ests = {k: bench.estimator(BENCH_HEAD, torch.float32, d)
+            for k, d in (("card", cuda), ("cpu", torch.device("cpu")))}
+    bdiff, n_valid, taken = chip_smoke.bench_card_against_cpu(np, torch, ests, 8, raised)
+    assert bdiff <= 1e-3 and 0 <= n_valid <= 8
+    if raised:
+        assert taken == 0
+
+
+def test_bench_launches_k1_bf16_twice_per_estimate(cuda):
+    from rgbmanip_tpu_torch import bench
+
+    row = bench.estimate_ms(bench.estimator(BENCH_HEAD, torch.bfloat16, cuda), 8, 2, 1)
+    assert row["estimates"] == 3 and row["ms"] > 0
+    assert row["launches"] == row["launches_bf16"] == 2 * row["estimates"]
+
+
+def test_bench_ppo_update_is_finite_on_the_card(cuda):
+    from rgbmanip_tpu_torch.algo.ppo import PPO
+    from rgbmanip_tpu_torch.scripts import bench_ppo_update as bpu
+
+    ppo = PPO(bpu.FakeEnv(), bpu.CFG, seed=0, device=cuda)
+    metrics = ppo._update(bpu.make_batch(0, cuda))
+    assert metrics.shape == (5,) and torch.isfinite(metrics).all()
+    assert all(torch.isfinite(p).all() for p in ppo.model.parameters())
+    assert len(ppo.update_lrs) == 32

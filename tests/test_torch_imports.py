@@ -45,7 +45,9 @@ def test_importing_the_port_loads_no_jax():
               "parallel.launch", "graft_entry", "scripts.eval_sweep",
               "scripts.diag_flagship", "scripts.trace_close", "scripts.trace_drawer",
               "scripts.trace_mug", "scripts.trace_mug_learned", "scripts.patch_ckpt_meta",
-              "scripts.plot_results"):
+              "scripts.plot_results", "bench", "scripts.bench_estimate",
+              "scripts.bench_ppo_update", "scripts.bench_ppo_iter",
+              "scripts.bench_sim_scaling"):
         assert f"rgbmanip_tpu_torch.{m}" in loaded
 
 
