@@ -33,7 +33,7 @@ from ... import repo_path, resolve_device
 from ...ops import geometry as G
 from ...ops.preprocess import depth_hypotheses, prepare_model_input
 from ...utils.checkpoint import load_checkpoint, write_msgpack
-from ...utils.logger import get_logger
+from ...utils.logger import count, get_logger, span
 from .base_estimator import BasePoseEstimator
 from .converter import load_jax_params, load_torch_state_dict, to_jax_params
 from .nets.stereo import StereoPoseNetV1, StereoPoseNetWithDepth, flax_init_
@@ -211,33 +211,34 @@ class AdaPoseEstimator(BasePoseEstimator):
         by default. Returns (bbox (B, 8, 3) world, valid (B,), pose dict)."""
         B = rgb1.shape[0]
         S, N = self.img_size, self.n_pts
-        c1, choose1, pts2d1, newK1, _ = prepare_model_input(rgb1, mask1, K, rand1, S, N,
-                                                            out_dtype=self.dtype)
-        c2, choose2, pts2d2, newK2, _ = prepare_model_input(rgb2, mask2, K, rand2, S, N,
-                                                            out_dtype=self.dtype)
-        ok1 = mask1.reshape(B, -1).any(-1)
-        ok2 = mask2.reshape(B, -1).any(-1)
 
         def full_proj(newK, ext):
             P = torch.eye(4, device=newK.device).repeat(B, 1, 1)
             P[:, :3, :] = newK @ ext[:, :3, :]
             return P
 
-        depth_values = depth_hypotheses(B, self.d_min, self.d_interval,
-                                        self.n_depth, device=rgb1.device)
+        with span("adapose/preprocess"):
+            c1, choose1, pts2d1, newK1, _ = prepare_model_input(rgb1, mask1, K, rand1, S, N,
+                                                                out_dtype=self.dtype)
+            c2, choose2, pts2d2, newK2, _ = prepare_model_input(rgb2, mask2, K, rand2, S, N,
+                                                                out_dtype=self.dtype)
+            ok1 = mask1.reshape(B, -1).any(-1)
+            ok2 = mask2.reshape(B, -1).any(-1)
+            proj1, proj2 = full_proj(newK1, ext1), full_proj(newK2, ext2)
+            depth_values = depth_hypotheses(B, self.d_min, self.d_interval,
+                                            self.n_depth, device=rgb1.device)
         # the real-world pose branch takes the points' original-frame pixels
         extra = (pts2d1, pts2d2) if self.real_world else ()
-        pred = self.model(c1, choose1, c2, choose2, full_proj(newK1, ext1),
-                          full_proj(newK2, ext2), depth_values, *extra)
-        bbox_cam, ok, R, tt, ts = self._solve(pred, choose1, newK1, pts2d1, pts2d2, K,
-                                              ext1, ext2,
-                                              self.generator if rand3 is None else rand3)
-
-        ex_inv = torch.linalg.inv_ex(ext1).inverse    # NaN, not an error, if singular
-        bbox_world = (ex_inv[:, :3, :3] @ bbox_cam + ex_inv[:, :3, 3:4]).transpose(1, 2)
-        valid = ok1 & ok2 & ok & torch.isfinite(bbox_world).reshape(B, -1).all(-1)
-        default = torch.as_tensor(DEFAULT_BBOX, device=bbox_world.device)
-        bbox = torch.where(valid[:, None, None], bbox_world, default)
+        pred = self.model(c1, choose1, c2, choose2, proj1, proj2, depth_values, *extra)
+        with span("adapose/solve"):
+            bbox_cam, ok, R, tt, ts = self._solve(pred, choose1, newK1, pts2d1, pts2d2, K,
+                                                  ext1, ext2,
+                                                  self.generator if rand3 is None else rand3)
+            ex_inv = torch.linalg.inv_ex(ext1).inverse    # NaN, not an error, if singular
+            bbox_world = (ex_inv[:, :3, :3] @ bbox_cam + ex_inv[:, :3, 3:4]).transpose(1, 2)
+            valid = ok1 & ok2 & ok & torch.isfinite(bbox_world).reshape(B, -1).all(-1)
+            default = torch.as_tensor(DEFAULT_BBOX, device=bbox_world.device)
+            bbox = torch.where(valid[:, None, None], bbox_world, default)
         return bbox, valid, {"R_cam": R, "t_cam": tt, "scale": ts}
 
     def append_picture(self, *args, **kwargs):
@@ -247,7 +248,10 @@ class AdaPoseEstimator(BasePoseEstimator):
 
     def _call_estimate(self, camera_intrinsic, rgb1, mask1, ext1, rgb2, mask2, ext2):
         def dev(x, dtype=torch.float32):
-            return torch.as_tensor(x, dtype=dtype, device=self.device)
+            y = torch.as_tensor(x, dtype=dtype, device=self.device)
+            if y.is_cuda and not (torch.is_tensor(x) and x.is_cuda):
+                count(h2d_bytes=y.nbytes)
+            return y
         return self._estimate(dev(camera_intrinsic), dev(rgb1),
                               dev(mask1, torch.bool), dev(ext1), dev(rgb2),
                               dev(mask2, torch.bool), dev(ext2),
@@ -257,18 +261,22 @@ class AdaPoseEstimator(BasePoseEstimator):
         """Batched estimate -> (B, 8, 3) world bboxes (numpy). Inputs: K
         (B, 3, 3), rgb (B, H, W, 3) in [0, 1], mask (B, H, W) bool, ext
         (B, 4, 4) world -> camera; numpy arrays or tensors."""
-        bbox, _, _ = self._call_estimate(camera_intrinsic, rgb1, mask1, ext1,
-                                         rgb2, mask2, ext2)
-        return bbox.cpu().numpy()
+        with span("adapose/estimate", pairs=len(rgb1), h2d_bytes=0):
+            bbox, _, _ = self._call_estimate(camera_intrinsic, rgb1, mask1, ext1,
+                                             rgb2, mask2, ext2)
+            with span("adapose/readback", d2h_bytes=bbox.nbytes):
+                return bbox.cpu().numpy()
 
     def estimate_full(self, camera_intrinsic, rgb1, mask1, ext1, rgb2, mask2, ext2):
         """Batched estimate with the solved pose: dict of numpy arrays
         ``bbox`` (B, 8, 3) world, ``valid`` (B,), and the view-1 camera
         frame ``R_cam`` (B, 3, 3), ``t_cam`` (B, 3), ``scale`` (B,)."""
-        bbox, valid, pose = self._call_estimate(camera_intrinsic, rgb1, mask1,
-                                                ext1, rgb2, mask2, ext2)
-        return {"bbox": bbox.cpu().numpy(), "valid": valid.cpu().numpy(),
-                **{k: v.cpu().numpy() for k, v in pose.items()}}
+        with span("adapose/estimate", pairs=len(rgb1), h2d_bytes=0):
+            bbox, valid, pose = self._call_estimate(camera_intrinsic, rgb1, mask1,
+                                                    ext1, rgb2, mask2, ext2)
+            out = {"bbox": bbox, "valid": valid, **pose}
+            with span("adapose/readback", d2h_bytes=sum(v.nbytes for v in out.values())):
+                return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def make_estimator(version: str, cfg: dict, logger=None, **kw) -> AdaPoseEstimator:

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ....ops.gather import flat_gather, point_sample
+from ....utils.logger import span
 from .layers import Conv2d, Conv3d, ConvTranspose3d, Linear
 from .pspnet import PSPNet
 
@@ -449,87 +450,90 @@ class StereoPoseNetWithDepth(_PoseNet):
                 return tuple(o[:B] for o in out), tuple(o[B:] for o in out)
             return out[:B], out[B:]
 
-        f1, f2 = both(self.img_extractor, (v1_img, v2_img))   # (B, S/fs, S/fs, 32)
-        pv = vs // fs
-        f1v, f2v = (avg_pool(f, pv) if pv > 1 else f for f in (f1, f2))
-        scale = torch.tensor([1.0 / vs, 1.0 / vs, 1.0, 1.0],
-                             device=v1_proj.device)[:, None]
-        p1v, p2v = scale * v1_proj, scale * v2_proj
-        if self.volume_channels:
-            def reduce(f):
-                return self.volume_reduce(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            f1v, f2v = reduce(f1v), reduce(f2v)
+        with span("stereo/backbone"):
+            f1, f2 = both(self.img_extractor, (v1_img, v2_img))   # (B, S/fs, S/fs, 32)
+            pv = vs // fs
+            f1v, f2v = (avg_pool(f, pv) if pv > 1 else f for f in (f1, f2))
+            scale = torch.tensor([1.0 / vs, 1.0 / vs, 1.0, 1.0],
+                                 device=v1_proj.device)[:, None]
+            p1v, p2v = scale * v1_proj, scale * v2_proj
+            if self.volume_channels:
+                def reduce(f):
+                    return self.volume_reduce(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                f1v, f2v = reduce(f1v), reduce(f2v)
         C = f1v.shape[-1]
 
-        if self.stereo_fusion:
-            w2 = homo_warp_batched(f2v, p2v, p1v, depth_values, self.warp_mode)
-            w1 = homo_warp_batched(f1v, p1v, p2v, depth_values, self.warp_mode)
-            fused1 = f1v[:, None] + w2             # (B, D, Sv, Sv, C)
-            fused2 = f2v[:, None] + w1
-        else:   # the ablation: each view's volume is its own features, no warp
-            fused1 = f1v[:, None].expand(B, D, Sv, Sv, C)
-            fused2 = f2v[:, None].expand(B, D, Sv, Sv, C)
-
-        def gather_pts(feat, choose):
-            # pixel-centre alignment into the strided map: (p + 0.5)/fs - 0.5
-            r, c = _rows_cols(choose, S)
-            return point_sample(feat, (r.float() + 0.5) / fs - 0.5,
-                                (c.float() + 0.5) / fs - 0.5)
-
-        def nocs_of(feat, choose):
-            return self.nocs_head(self.instance_color(gather_pts(feat, choose)))
-        nocs1, nocs2 = both(nocs_of, (f1, f2), (v1_choose, v2_choose))
+        with span("stereo/warp"):
+            if self.stereo_fusion:
+                w2 = homo_warp_batched(f2v, p2v, p1v, depth_values, self.warp_mode)
+                w1 = homo_warp_batched(f1v, p1v, p2v, depth_values, self.warp_mode)
+                fused1 = f1v[:, None] + w2             # (B, D, Sv, Sv, C)
+                fused2 = f2v[:, None] + w1
+            else:   # the ablation: each view's volume is its own features, no warp
+                fused1 = f1v[:, None].expand(B, D, Sv, Sv, C)
+                fused2 = f2v[:, None].expand(B, D, Sv, Sv, C)
 
         def cost(fused):                       # -> (B, Sv, Sv, D)
             vol = fused.permute(0, 4, 1, 2, 3).contiguous()   # (B, C, D, Sv, Sv)
             return self.cost_regularization(vol)[:, 0].permute(0, 2, 3, 1)
 
-        def point_depth(cost_vol, choose, dvals):
-            r, c = _rows_cols(choose, S)
-            pts = point_sample(cost_vol, (r.float() + 0.5) / vs - 0.5,
-                               (c.float() + 0.5) / vs - 0.5)  # (B, N, D)
-            prob = torch.softmax(pts.float(), dim=-1)
-            return prob, (prob * dvals[:, None, :]).sum(-1)
-
-        cost1, cost2 = both(cost, (fused1, fused2))
-        prob1, depth1 = point_depth(cost1, v1_choose, depth_values)
-        prob2, depth2 = point_depth(cost2, v2_choose, depth_values)
-        out = {"view1_nocs": nocs1, "view2_nocs": nocs2,
-               "view1_depth": depth1, "view2_depth": depth2}
-        if not self.regress_pose:
-            return out
-
-        if self.realworld_pts:
-            if v1_pts2d is None or v2_pts2d is None:
-                raise ValueError("realworld_pts=True requires v1_pts2d/v2_pts2d")
-
-            def pose_feat(pts2d, depth, nocs):
-                pts3d = torch.cat([pts2d.to(dt), depth[..., None].to(dt)], dim=-1)
-                return torch.cat([self.camera_pts_mlp(pts3d),
-                                  self.nocs_pts_mlp(nocs).to(dt)], dim=-1)
-            feats = (pose_feat(v1_pts2d, depth1, nocs1), pose_feat(v2_pts2d, depth2, nocs2))
-        else:
-            def pose_feat(fused, choose, prob, nocs):
-                # depth-probability-weighted volume features at the nearest
-                # volume cell of each chosen pixel
-                Bp = fused.shape[0]
+        with span("stereo/cost_reg"):
+            cost1, cost2 = both(cost, (fused1, fused2))
+        with span("stereo/heads"):
+            def gather_pts(feat, choose):
+                # pixel-centre alignment into the strided map: (p + 0.5)/fs - 0.5
                 r, c = _rows_cols(choose, S)
-                py = torch.div(r, vs, rounding_mode="floor").clamp(0, Sv - 1)
-                px = torch.div(c, vs, rounding_mode="floor").clamp(0, Sv - 1)
-                table = fused.permute(0, 2, 3, 1, 4).reshape(Bp, Sv * Sv, D * C)
-                pts = flat_gather(table, py * Sv + px).reshape(Bp, -1, D, C)
-                # the products with the probabilities rounded to the dtype,
-                # summed in f32 and rounded once (XLA keeps the products in
-                # f32 for the sum)
-                w = prob[..., None].to(dt).float()
-                feat = (pts.float() * w).sum(2).to(dt)
-                return torch.cat([feat, self.nocs_pts_mlp(nocs).to(dt)], dim=-1)
-            feats = (pose_feat(fused1, v1_choose, prob1, nocs1),
-                     pose_feat(fused2, v2_choose, prob2, nocs2))
-        (R1, t1, s1), (R2, t2, s2) = both(self.heads, feats)
-        out.update({"view1_r": R1, "view1_t": t1, "view1_s": s1,
-                    "view2_r": R2, "view2_t": t2, "view2_s": s2})
-        return out
+                return point_sample(feat, (r.float() + 0.5) / fs - 0.5,
+                                    (c.float() + 0.5) / fs - 0.5)
+
+            def nocs_of(feat, choose):
+                return self.nocs_head(self.instance_color(gather_pts(feat, choose)))
+            nocs1, nocs2 = both(nocs_of, (f1, f2), (v1_choose, v2_choose))
+
+            def point_depth(cost_vol, choose, dvals):
+                r, c = _rows_cols(choose, S)
+                pts = point_sample(cost_vol, (r.float() + 0.5) / vs - 0.5,
+                                   (c.float() + 0.5) / vs - 0.5)  # (B, N, D)
+                prob = torch.softmax(pts.float(), dim=-1)
+                return prob, (prob * dvals[:, None, :]).sum(-1)
+
+            prob1, depth1 = point_depth(cost1, v1_choose, depth_values)
+            prob2, depth2 = point_depth(cost2, v2_choose, depth_values)
+            out = {"view1_nocs": nocs1, "view2_nocs": nocs2,
+                   "view1_depth": depth1, "view2_depth": depth2}
+            if not self.regress_pose:
+                return out
+            if self.realworld_pts:
+                if v1_pts2d is None or v2_pts2d is None:
+                    raise ValueError("realworld_pts=True requires v1_pts2d/v2_pts2d")
+
+                def pose_feat(pts2d, depth, nocs):
+                    pts3d = torch.cat([pts2d.to(dt), depth[..., None].to(dt)], dim=-1)
+                    return torch.cat([self.camera_pts_mlp(pts3d),
+                                      self.nocs_pts_mlp(nocs).to(dt)], dim=-1)
+                feats = (pose_feat(v1_pts2d, depth1, nocs1), pose_feat(v2_pts2d, depth2, nocs2))
+            else:
+                def pose_feat(fused, choose, prob, nocs):
+                    # depth-probability-weighted volume features at the nearest
+                    # volume cell of each chosen pixel
+                    Bp = fused.shape[0]
+                    r, c = _rows_cols(choose, S)
+                    py = torch.div(r, vs, rounding_mode="floor").clamp(0, Sv - 1)
+                    px = torch.div(c, vs, rounding_mode="floor").clamp(0, Sv - 1)
+                    table = fused.permute(0, 2, 3, 1, 4).reshape(Bp, Sv * Sv, D * C)
+                    pts = flat_gather(table, py * Sv + px).reshape(Bp, -1, D, C)
+                    # the products with the probabilities rounded to the dtype,
+                    # summed in f32 and rounded once (XLA keeps the products in
+                    # f32 for the sum)
+                    w = prob[..., None].to(dt).float()
+                    feat = (pts.float() * w).sum(2).to(dt)
+                    return torch.cat([feat, self.nocs_pts_mlp(nocs).to(dt)], dim=-1)
+                feats = (pose_feat(fused1, v1_choose, prob1, nocs1),
+                         pose_feat(fused2, v2_choose, prob2, nocs2))
+            (R1, t1, s1), (R2, t2, s2) = both(self.heads, feats)
+            out.update({"view1_r": R1, "view1_t": t1, "view1_s": s1,
+                        "view2_r": R2, "view2_t": t2, "view2_s": s2})
+            return out
 
 
 class VolumeConv(nn.Module):

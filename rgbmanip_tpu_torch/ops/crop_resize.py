@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ..utils.logger import count
 from ._build import load_library
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -201,6 +202,7 @@ def _launch(name: str, rgb, rmin, cmin, scale, out_size: int, out_dtype):
 
 def _count(wrapper, out_dtype):
     wrapper.launches += 1
+    count(k1_launches=1)
     if out_dtype == torch.bfloat16:
         wrapper.launches_bf16 += 1
 

@@ -40,8 +40,10 @@ train.train_manipulation=true``. Four run modes:
 The estimator and the policy run on ``device`` (the card by default; the
 run raises without one unless ``device=cpu`` is passed). The simulator and
 the skills run on the host. ``RGBMANIP_PROFILE=<dir>`` records a
-torch.profiler trace of the run into ``<dir>/trace.json``. Each mode logs
-the env's PhaseTimer split at its end.
+torch.profiler trace of the run into ``<dir>/trace.json``, and its spans
+(``utils.logger.span``: each phase, and the estimate's stages inside its
+``estimate`` phase) into ``<dir>/spans.json``. Each mode logs the env's
+PhaseTimer split at its end, and a profiled run its spans.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ import torch
 
 from . import resolve_device
 from .config.loader import ConfigError, load_config, save_config
-from .utils.logger import MetricsWriter, get_logger
+from .utils.logger import SPANS, MetricsWriter, get_logger
 
 def prepare_env(task_cfg, data_cfg, headless=True, viewerless=False, log=None, seed=0):
     """Construct the batched task env (reference train.py:45-149)."""
@@ -182,6 +184,17 @@ def test(env, controller, cfg, log, writer=None):
 def log_phases(env, log):
     phases = " ".join(f"{k}={v:.3f}s" for k, v in env.timer.summary().items())
     log.info(f"phase timings: {phases}")
+
+
+def log_spans(summary, path, log):
+    """Write the profiled run's spans (``SPANS.summary()``) to ``path`` and
+    log them: per span, calls and host (and device) ms a call."""
+    with open(path, "w") as f:
+        json.dump(summary, f, indent=1)
+    spans = " ".join(f"{k}={v['calls']}x{v['host_ms']:.3f}"
+                     + (f"/{v['device_ms']:.3f}" if "device_ms" in v else "") + "ms"
+                     for k, v in summary.items())
+    log.info(f"span timings (calls x host/device ms a call): {spans}")
 
 
 def collect(env, controller, cfg, log):
@@ -379,6 +392,7 @@ def main(argv=None):
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if device.type == "cuda" else [])
         prof = profile(activities=acts)
+        SPANS.reset()
         prof.start()
     result = None
     try:
@@ -393,6 +407,7 @@ def main(argv=None):
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            log_spans(SPANS.summary(), os.path.join(profile_dir, "spans.json"), log)
         writer.close()
         env.close()
     if result is not None:

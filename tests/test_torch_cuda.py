@@ -994,3 +994,60 @@ def test_bench_ppo_update_is_finite_on_the_card(cuda):
     assert metrics.shape == (5,) and torch.isfinite(metrics).all()
     assert all(torch.isfinite(p).all() for p in ppo.model.parameters())
     assert len(ppo.update_lrs) == 32
+
+
+def test_spans_split_the_bf16_estimate_on_card(cuda, monkeypatch):
+    """The estimate's spans at the fast configuration, B=8, bf16, inputs on
+    the card as the benchmark hands them: under the profiler every stage has
+    device time, the seven stages cover 95-100.5% of the estimate's, the
+    sync counter equals what torch's sync debug mode reports for the same
+    call counted on its own (the readback's five copies among them), and
+    the outputs equal the untraced call's bitwise."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbmanip_tpu_torch.utils.logger import SPANS, SYNC_WARNING
+
+    # deterministic convolution algorithms, so that two calls may be compared bitwise
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"load": False})
+    est = AdaPoseEstimator(cfg, device=cuda, seed=0, dtype=torch.bfloat16)
+    args = [torch.from_numpy(a).to(cuda) for a in estimate_args(8, seed=3)]
+
+    def call():
+        est.generator.manual_seed(3)
+        return est.estimate_full(*args)
+    off = [call() for _ in range(2)][-1]
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    syncs = sum(SYNC_WARNING in str(w.message) for w in log)
+
+    SPANS.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            on = [call() for _ in range(3)]
+            torch.cuda.synchronize()
+        s = SPANS.summary()
+    finally:
+        SPANS.reset()
+    for out in on:
+        assert set(out) == set(off)
+        assert all(np.array_equal(out[k], off[k], equal_nan=True) for k in off)
+    stages = ("adapose/preprocess", "stereo/backbone", "stereo/warp", "stereo/cost_reg",
+              "stereo/heads", "adapose/solve", "adapose/readback")
+    root = s["adapose/estimate"]
+    assert root["calls"] == 3 and all(s[k]["calls"] == 3 for k in stages)
+    assert all(s[k]["device_ms"] > 0 for k in stages), {k: s[k]["device_ms"] for k in stages}
+    cover = sum(s[k]["device_ms"] for k in stages) / root["device_ms"]
+    assert 0.95 <= cover <= 1.005, cover
+    assert sum(v["host_syncs"] * v["calls"] for v in s.values()) / 3 == syncs
+    assert s["adapose/readback"]["host_syncs"] >= 5
+    assert root["pairs"] == 8 and root["h2d_bytes"] == 0
+    assert s["adapose/preprocess"]["k1_launches"] == 2

@@ -561,7 +561,8 @@ def test_train_controller_through_main_writes_checkpoint_and_profile(tmp_path, m
     """``python -m rgbmanip_tpu_torch.train ... train=controller device=cpu``
     at 2 envs and 4 transitions: one iteration from the committed policy
     writes ``model_166.ckpt``, and ``RGBMANIP_PROFILE`` a trace holding the
-    rollout's ``policy`` and ``estimate`` ranges and the update's ``learn``."""
+    rollout's ``policy`` and ``estimate`` ranges and the update's ``learn``,
+    and the spans' summary, the estimate's stages inside its phase."""
     import json
 
     from rgbmanip_tpu_torch import train as port_train
@@ -575,3 +576,9 @@ def test_train_controller_through_main_writes_checkpoint_and_profile(tmp_path, m
         names = {e.get("name") for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"}
     assert {"policy", "estimate", "learn"} <= names
+    with open(tmp_path / "profile" / "spans.json") as f:
+        spans = json.load(f)
+    stages = {"adapose/estimate", "adapose/preprocess", "stereo/backbone", "stereo/warp",
+              "stereo/cost_reg", "stereo/heads", "adapose/solve", "adapose/readback"}
+    assert {"policy", "estimate", "learn"} | stages <= set(spans) <= names
+    assert spans["adapose/estimate"]["calls"] == spans["adapose/solve"]["calls"] >= 1
