@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ....utils.logger import count
 from .layers import Conv2d, PReLU, cumsum
 
 # backend -> (blocks per stage, stage widths, slim 1x1 up_1)
@@ -109,28 +110,77 @@ def _edges(n: int, s: int):
     return [i * n // s for i in range(s)], [-((-(i + 1) * n) // s) for i in range(s)]
 
 
-class AdaptiveAvgPool2d(nn.Module):
-    """``AdaptiveAvgPool2d``: at f32 PyTorch's own; in a reduced dtype as the
-    JAX module computes it, through integral images (a cumulative sum over
-    rows, then columns, and four corners per window) in x's dtype."""
+@functools.cache
+def pool_tables(H: int, W: int, dtype, device):
+    """The windows of every bin of ``BINS`` over an H x W map, bin after bin
+    and row-major (1 + 4 + 9 + 36): (4, n) flat indices into the padded
+    (H + 1) x (W + 1) integral image of each window's corners, bottom-right,
+    top-right, bottom-left, top-left, and (n,) window areas in ``dtype``.
+    Made on the device once per shape, outside inference mode, so that a
+    cached tensor serves autograd too."""
+    corners, areas = [], []
+    for s in BINS:
+        (ylo, yhi), (xlo, xhi) = _edges(H, s), _edges(W, s)
+        for a, b in zip(ylo, yhi):
+            for c, d in zip(xlo, xhi):
+                corners.append([b * (W + 1) + d, a * (W + 1) + d,
+                                b * (W + 1) + c, a * (W + 1) + c])
+                areas.append((b - a) * (d - c))
+    with torch.inference_mode(False):
+        return (torch.tensor(corners).T.contiguous().to(device),
+                torch.tensor(areas, dtype=torch.float32).to(dtype).to(device))
 
-    def __init__(self, out_size: int):
-        super().__init__()
-        self.out_size = out_size
 
-    def forward(self, x):
-        if x.dtype == torch.float32:
-            return F.adaptive_avg_pool2d(x, self.out_size)
-        B, C, H, W = x.shape
-        cs = F.pad(cumsum(cumsum(x, 2), 3), (1, 0, 1, 0))
-        (ylo, yhi), (xlo, xhi) = _edges(H, self.out_size), _edges(W, self.out_size)
+class _Bin(torch.autograd.Function):
+    """One bin's (B, C, s, s) maps, cut from the pooled windows of every
+    bin, with the gradient that autograd gives the bin's own integral-image
+    pooling: the divide, each corner's gradient scattered and the four added
+    in the order autograd adds them (top-left, bottom-left, top-right,
+    bottom-right), the padding dropped and both cumulative sums reversed,
+    each step rounded in x's dtype. Autograd through the one integral image
+    of all bins would add every bin's corners before the reversed sums, and
+    round otherwise."""
 
-        def at(rows, cols):
-            return cs[:, :, rows][:, :, :, cols]
-        s = at(yhi, xhi) - at(ylo, xhi) - at(yhi, xlo) + at(ylo, xlo)
-        area = torch.tensor([[(b - a) * (d - c) for c, d in zip(xlo, xhi)]
-                             for a, b in zip(ylo, yhi)], dtype=torch.float32)
-        return s / area.to(device=x.device, dtype=x.dtype)
+    @staticmethod
+    def forward(ctx, x, pooled, corners, area):
+        ctx.save_for_backward(corners, area)
+        ctx.hw = x.shape[-2:]
+        return pooled.unflatten(2, area.shape).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        corners, area = ctx.saved_tensors
+        (H, W), (B, C) = ctx.hw, grad.shape[:2]
+        g = (grad / area).flatten(2)
+
+        def at(k, v):
+            return grad.new_zeros(B, C, (H + 1) * (W + 1)).index_add_(2, corners[k], v)
+        d = (((at(3, g) + at(2, -g)) + at(1, -g)) + at(0, g)).unflatten(2, (H + 1, W + 1))
+        d = d[:, :, 1:, 1:]
+        for dim in (3, 2):
+            d = cumsum(d.flip(dim), dim).flip(dim)
+        return d, None, None, None
+
+
+def pyramid_pool(x):
+    """``AdaptiveAvgPool2d`` of x (B, C, H, W) to each bin of ``BINS``, in
+    x's reduced dtype as the JAX module computes it: an integral image (a
+    cumulative sum over rows, then columns), the four corners of every
+    window read by one gather (``pool_tables``), ``a - b - c + d`` and the
+    divide by the area, each op rounded in x's dtype. The integral image is
+    built once for all bins, and nothing is copied from the host."""
+    B, C, H, W = x.shape
+    corners, area = pool_tables(H, W, x.dtype, x.device)
+    with torch.no_grad():
+        cs = F.pad(cumsum(cumsum(x, 2), 3), (1, 0, 1, 0)).flatten(2)
+        g = cs.index_select(2, corners.flatten()).unflatten(2, corners.shape)
+        pooled = (g[:, :, 0] - g[:, :, 1] - g[:, :, 2] + g[:, :, 3]) / area
+    out, o = [], 0
+    for s in BINS:
+        out.append(_Bin.apply(x, pooled[:, :, o:o + s * s], corners[:, o:o + s * s],
+                              area[o:o + s * s].view(s, s)))
+        o += s * s
+    return out
 
 
 class BasicBlock(nn.Module):
@@ -173,14 +223,21 @@ class PSPModule(nn.Module):
         super().__init__()
         red = feat_dim // len(BINS)
         self.stages = nn.ModuleList(
-            nn.Sequential(AdaptiveAvgPool2d(b), Conv2d(feat_dim, red, 1, bias=False,
-                                                       dtype=dtype))
+            nn.Sequential(nn.AdaptiveAvgPool2d(b), Conv2d(feat_dim, red, 1, bias=False,
+                                                          dtype=dtype))
             for b in BINS)
 
     def forward(self, x):
+        """At f32 each stage pools; in a reduced dtype ``pyramid_pool`` pools
+        every bin and each stage's conv takes its bin."""
         size = x.shape[-2:]
-        return torch.cat([x] + [resize_bilinear(F.relu(s(x)), size)
-                                for s in self.stages], dim=1)
+        if x.dtype == torch.float32:
+            return torch.cat([x] + [resize_bilinear(F.relu(s(x)), size)
+                                    for s in self.stages], dim=1)
+        count(psp_pool_gathers=1)
+        return torch.cat([x] + [resize_bilinear(F.relu(conv(p)), size)
+                                for (_, conv), p in zip(self.stages, pyramid_pool(x))],
+                         dim=1)
 
 
 class PSPUpsample(nn.Module):

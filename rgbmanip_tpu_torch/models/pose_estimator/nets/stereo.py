@@ -38,6 +38,8 @@ this module ports ``CostRegNet``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -178,6 +180,15 @@ def avg_pool(f, k: int):
         for j in range(k):
             s = t[:, :, i, :, j] if s is None else s + t[:, :, i, :, j]
     return s / (k * k)
+
+
+@functools.cache
+def volume_scale_rows(vs: int, device) -> torch.Tensor:
+    """(4, 1) f32 factors that take a projection's first two rows to the
+    volume's resolution 1 / ``vs``: made on the device once, so that a call
+    copies nothing from the host, and outside inference mode."""
+    with torch.inference_mode(False):
+        return torch.tensor([1.0 / vs, 1.0 / vs, 1.0, 1.0], device=device)[:, None]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -454,8 +465,7 @@ class StereoPoseNetWithDepth(_PoseNet):
             f1, f2 = both(self.img_extractor, (v1_img, v2_img))   # (B, S/fs, S/fs, 32)
             pv = vs // fs
             f1v, f2v = (avg_pool(f, pv) if pv > 1 else f for f in (f1, f2))
-            scale = torch.tensor([1.0 / vs, 1.0 / vs, 1.0, 1.0],
-                                 device=v1_proj.device)[:, None]
+            scale = volume_scale_rows(vs, v1_proj.device)
             p1v, p2v = scale * v1_proj, scale * v2_proj
             if self.volume_channels:
                 def reduce(f):

@@ -1051,3 +1051,49 @@ def test_spans_split_the_bf16_estimate_on_card(cuda, monkeypatch):
     assert s["adapose/readback"]["host_syncs"] >= 5
     assert root["pairs"] == 8 and root["h2d_bytes"] == 0
     assert s["adapose/preprocess"]["k1_launches"] == 2
+    # the pyramid pooling reads its windows from device tables: one gather a view
+    assert s["stereo/backbone"]["host_syncs"] == 0
+    assert s["stereo/backbone"]["psp_pool_gathers"] == 2
+    assert syncs == 9
+    # and gives what the per-bin integral images gave
+    per_bin_pooling(monkeypatch)
+    assert all(np.array_equal(off[k], v, equal_nan=True) for k, v in call().items())
+
+
+def per_bin_pooling(monkeypatch):
+    """``PSPModule`` in a reduced dtype as it was before ``pyramid_pool``:
+    each bin's own integral image (``tests/test_psp_pool.py``'s reference)."""
+    from test_psp_pool import reference_psp
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import pspnet
+
+    forward = pspnet.PSPModule.forward
+    monkeypatch.setattr(pspnet.PSPModule, "forward",
+                        lambda self, x: (forward(self, x) if x.dtype == torch.float32
+                                         else reference_psp(self, x)))
+
+
+def test_bf16_paper_estimate_equals_the_per_bin_pooling_on_card(cuda, monkeypatch):
+    """adapose_cabinet (resnet34 at stride 8, 224 px: a 28x28 map into the
+    pyramid) in bf16 at B=4 on seeded weights: the PSPNet's features and the
+    estimate's outputs equal bit for bit those of the per-bin pooling, with
+    cuDNN's deterministic algorithms."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = load_group("pose_estimator", "adapose_cabinet", {"load": False})
+    est = AdaPoseEstimator(cfg, device=cuda, seed=0, dtype=torch.bfloat16)
+    args = [torch.from_numpy(a).to(cuda) for a in estimate_args(4, seed=3)]
+    feats = []
+    est.model.img_extractor.register_forward_hook(lambda m, i, o: feats.append(o.clone()))
+
+    def call():
+        feats.clear()
+        est.generator.manual_seed(3)
+        return est.estimate_full(*args), list(feats)
+    new, new_feats = call()
+    per_bin_pooling(monkeypatch)
+    old, old_feats = call()
+    assert len(new_feats) == 2 and new_feats[0].shape == (4, 224, 224, 32)
+    assert new_feats[0].dtype == torch.bfloat16
+    assert all(torch.equal(a, b) for a, b in zip(new_feats, old_feats))
+    assert set(new) == set(old)
+    assert all(np.array_equal(new[k], old[k], equal_nan=True) for k in old)
