@@ -106,8 +106,11 @@ before it and read just after. Phases:
      equal success and move distance. Then ``train=collect``
      (``collect_pose``, 8 envs) writes 8 view pairs and ``inference.main``
      estimates them on the card in one batch of 8 (counters set to 0 just
-     before, K1 twice); the same batch on the card and on the CPU with the
-     same draws within 1e-3 m and equal valid flags; the estimate's wall
+     before, K1 twice, K2 twice: the estimator's default network warps
+     bilinearly at full resolution); the same batch on the card and on the
+     CPU with the same draws within 1e-3 m and equal valid flags; K2 on the
+     card estimate's own calls, (8, 32, 24, 224, 224) in f32, bit for bit
+     against the eager warp and timed beside its bound; the estimate's wall
      time, device busy time, idle share and top kernels at B=8
  15. bf16, the JAX package's default compute dtype: the flagship and
      paper-size estimates with K1's bf16 entry point, ``evaluate`` on the
@@ -142,7 +145,9 @@ before it and read just after. Phases:
      estimator loss and PPO metrics against the same steps run unsharded on
      the CPU at 1e-4 relative, and the ms per sharded step beside the
      unsharded step's on the card. Neither path launches K1 or K5 (the
-     dryrun's batches come cropped, as the JAX dryrun's do)
+     dryrun's batches come cropped, as the JAX dryrun's do); ``entry()``
+     launches K2 twice a forward, held bit for bit against the eager warp
+     on its own calls in bf16 and timed
  21. the evaluation sweep and the failure diagnostics
      (``rgbmanip_tpu_torch/scripts/``), each through its ``main`` or the
      sweep's own row loop, with every launch counter set to 0 just before
@@ -184,7 +189,9 @@ Any failure exits non-zero. The line before the last is the kernels' JSON
 (K1's f32 launches as ``crop_resize_normalize``, its bf16 entry point's
 apart as ``crop_resize_normalize_bf16``, its clamping mode's as
 ``crop_resize_normalize_clamp`` and ``crop_resize_normalize_clamp_bf16``:
-no path runs the latter, since both packages' samplers crop in f32),
+no path runs the latter, since both packages' samplers crop in f32; K2's
+f32 launches, phase 14's, as ``plane_sweep_fuse`` and its bf16 launches,
+phase 20's, as ``plane_sweep_fuse_bf16``, each timed on its path's calls),
 the line before that the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``. Without a card the script exits 1 and
 prints no result.
@@ -377,6 +384,64 @@ def host_ms(torch, fn, reps=7):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def k2_recorded(calls):
+    """Within: each call the network makes to ``stereo.fused_volume`` (the
+    entry of K2) appended to ``calls`` as its arguments."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    orig = stereo.fused_volume
+
+    def rec(*args):
+        calls.append(args)
+        return orig(*args)
+    stereo.fused_volume = rec
+    try:
+        yield
+    finally:
+        stereo.fused_volume = orig
+
+
+def k2_on_path(torch, calls, card, label):
+    """K2 on the calls a path made (``k2_recorded``): each replayed against
+    its plain version (``stereo.fused_volume_plain``: the eager warp, the
+    fusing add and the U-Net's permuted copy) bit for bit, then K2's device
+    time per launch beside its bound (the fused volume written once and both
+    feature maps read once, ``portbench/counts/k2.py``, over the card's
+    memory bandwidth) and the plain version's. Returns (ms, plain ms, bound
+    ms, shape (B, C, D, H, W), dtype)."""
+    from portbench.counts import k2
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    from rgbmanip_tpu_torch.scripts.perfutil import HBM_BYTES_PER_S
+
+    check(len(calls) == 2, f"{label}: {len(calls)} calls to fused_volume; an estimate "
+          f"makes one a direction")
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    with torch.inference_mode():
+        for args in calls:
+            got = stereo.fused_volume(*args)
+            want = stereo.fused_volume_plain(*args)
+            check(got.shape == want.shape and got.dtype == want.dtype
+                  and torch.equal(got.view(bits[got.dtype]), want.view(bits[want.dtype])),
+                  f"{label}: K2 differs from the eager warp at {tuple(got.shape)} {got.dtype}")
+            del got, want
+        torch.cuda.synchronize()
+        kern = device_times(torch, lambda: [stereo.fused_volume(*a) for a in calls], n=5)
+        k2_ms = {n: v for n, v in kern.items() if "plane_sweep_fuse" in n}
+        check(len(k2_ms) == 1, f"the profiler did not see K2's kernel: {sorted(kern)}")
+        ms = sum(k2_ms.values()) / len(calls)
+        plain = sum(device_times(torch, lambda: [stereo.fused_volume_plain(*a) for a in calls],
+                                 n=3).values()) / len(calls)
+    B, H, W, C = calls[0][0].shape
+    D = calls[0][4].shape[1]
+    dtype = calls[0][0].dtype
+    bound = k2.launch_bytes(B, C, D, H, W, calls[0][0].element_size()) / HBM_BYTES_PER_S * 1e3
+    say("time", f"{card} | K2 on {label}'s own calls, (B, C, D, H, W) = {(B, C, D, H, W)} "
+        f"{dtype}: equal to the eager warp bit for bit, both directions; device time per "
+        f"launch {ms:.4f} ms ({bound / ms * 100:.1f}% of the {bound:.4f} ms bytes bound), "
+        f"plain {plain:.4f} ms")
+    return ms, plain, bound, (B, C, D, H, W), dtype
 
 
 # --------------------------------------------------------- the evaluation --
@@ -757,14 +822,18 @@ def inference_batch(np, torch, dev, card):
     then ``inference.main`` on the card estimates them at B=8 with every
     launch counter set to 0 just before it and read just after; the same
     batch on the card and on the CPU with the same draws; the estimate's
-    wall time, device busy time and idle share at B=8. Returns K1's
-    launches in ``inference.main``."""
+    wall time, device busy time and idle share at B=8. The estimator's
+    default network warps bilinearly at full resolution, so K2 runs twice
+    an estimate: on the card estimate's own calls it is held bit for bit
+    against the eager warp, and timed. Returns K1's and K2's launches in
+    ``inference.main`` and K2's row of the kernels line."""
     import tempfile
 
     from rgbmanip_tpu_torch import train as T
     from rgbmanip_tpu_torch.models.pose_estimator import inference
     from rgbmanip_tpu_torch.models.pose_estimator.adapose import AdaPoseEstimator
     from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import plane_sweep as k2
     from rgbmanip_tpu_torch.ops import row_gather as k5
 
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
@@ -778,15 +847,18 @@ def inference_batch(np, torch, dev, card):
         say("inference", f"train=collect (collect_pose, {B_MAIN} envs) wrote "
             f"{len(files)} view pairs in {time.perf_counter() - t0:.1f} s")
         k1.crop_resize_normalize.launches = 0
+        k2.warp_fuse.launches = 0
         k5.row_gather.launches = 0
         t0 = time.perf_counter()
         result = inference.main(["--data_root", data])          # the card by default
         main_s = time.perf_counter() - t0
         launches = {"crop_resize_normalize": k1.crop_resize_normalize.launches,
+                    "plane_sweep_fuse": k2.warp_fuse.launches,
                     "row_gather": k5.row_gather.launches}
-        check(result["n"] == B_MAIN and launches["crop_resize_normalize"] == 2,
+        check(result["n"] == B_MAIN and launches["crop_resize_normalize"] == 2
+              and launches["plane_sweep_fuse"] == 2,
               f"inference.main estimated {result['n']} pairs with {launches}; one batch "
-              f"of {B_MAIN} launches K1 twice")
+              f"of {B_MAIN} launches K1 twice and K2 twice")
         say("inference", f"python -m rgbmanip_tpu_torch.models.pose_estimator.inference "
             f"--data_root <pairs> (the card by default; the estimator's default "
             f"architecture: resnet34 at stride 8, 224 px, volume scale 1, bilinear warp, "
@@ -798,13 +870,17 @@ def inference_batch(np, torch, dev, card):
     S = cfg["img_size"]
     g = torch.Generator().manual_seed(8)
     u = [torch.rand(B_MAIN, S * S, generator=g) for _ in range(2)]
-    outs = {}
+    outs, k2_calls = {}, []
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
         est = AdaPoseEstimator(cfg, device=d)
         t = [torch.from_numpy(a).to(d) for a in args]
-        bbox, valid, _ = est._estimate(*[x if x.dtype == torch.bool else x.float()
-                                         for x in t], *(x.to(d) for x in u))
+        k2.warp_fuse.launches = 0
+        with k2_recorded(k2_calls if name == "card" else []):
+            bbox, valid, _ = est._estimate(*[x if x.dtype == torch.bool else x.float()
+                                             for x in t], *(x.to(d) for x in u))
         outs[name] = (bbox.cpu().numpy(), valid.cpu().numpy())
+        check(k2.warp_fuse.launches == (2 if name == "card" else 0),
+              f"the {name} estimate launched K2 {k2.warp_fuse.launches} times")
         if name == "card":
             card_est = est
     bdiff = float(np.abs(outs["card"][0] - outs["cpu"][0]).max())
@@ -829,7 +905,9 @@ def inference_batch(np, torch, dev, card):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
     for name, v in top[:6]:
         say("time", f"    {v:.4f} ms ({v / busy * 100:.1f}%) {name[:90]}")
-    return launches["crop_resize_normalize"]
+    k2_row = k2_on_path(torch, k2_calls, card, "inference")
+    del k2_calls
+    return launches["crop_resize_normalize"], launches["plane_sweep_fuse"], k2_row
 
 
 # ---------------------------------------------------------------- training --
@@ -1857,19 +1935,30 @@ def entry_forward(np, torch, dev, card):
     the same weights on each; per output, the mean |card - CPU| of the bf16
     forwards within twice the CPU's own mean bf16-to-f32 difference (phase
     15's rule), and the card's own bf16-to-f32 difference at least half the
-    CPU's (it computed in bf16). Returns the card's launches of K1 and K5."""
+    CPU's (it computed in bf16). The network warps bilinearly at full
+    resolution with no gradient, so K2 runs twice a forward: on the card
+    forward's own calls it is held bit for bit against the eager warp, and
+    timed. Returns the card's launches of K1 and K5, K2's, and K2's row of
+    the kernels line."""
     from rgbmanip_tpu_torch import graft_entry
     from rgbmanip_tpu_torch.ops import crop_resize as k1
+    from rgbmanip_tpu_torch.ops import plane_sweep as k2
     from rgbmanip_tpu_torch.ops import row_gather as k5
 
     names = ("view1_nocs", "view1_depth", "view1_r")
     zero_k1_counters(k1)
+    k2.warp_fuse.launches = 0
     k5.row_gather.launches = 0
     forward, args = graft_entry.entry()
-    card16 = [o.float().cpu() for o in forward(*args)]
+    k2_calls = []
+    with k2_recorded(k2_calls):
+        card16 = [o.float().cpu() for o in forward(*args)]
     torch.cuda.synchronize()
     launches = (k1.crop_resize_normalize.launches + k1.crop_resize_normalize_clamp.launches,
                 k5.row_gather.launches)
+    k2_launches = k2.warp_fuse.launches
+    check(k2_launches == 2, f"entry()'s bf16 forward launched K2 {k2_launches} times; "
+          f"it launches it once a direction")
     outs = forward(*args)
     check([o.dtype for o in outs] == [torch.bfloat16, torch.float32, torch.bfloat16]
           and all(o.is_cuda for o in outs), "entry() did not run in bf16 on the card (the "
@@ -1903,8 +1992,11 @@ def entry_forward(np, torch, dev, card):
     _, S, _, D = graft_entry.ENTRY_SHAPE
     say("entry", f"{card} | entry() bf16 forward, B={B} {S} px resnet34 stride 8, a "
         f"{S}x{S}x{D} volume, bilinear warp: {wall:.2f} ms wall on the card (CPU {cpu_s:.1f} s); "
-        f"launches (K1, K5) {launches}: neither kernel is on this path")
-    return launches
+        f"launches (K1, K5) {launches}: neither is on this path; K2 {k2_launches} (twice a "
+        f"forward)")
+    k2_row = k2_on_path(torch, k2_calls, card, "entry()")
+    del k2_calls
+    return launches, k2_launches, k2_row
 
 
 def multi_device(np, torch, dev, card):
@@ -2725,7 +2817,7 @@ def run():
         f"for convolutions and matmuls (f32 throughout)")
 
     # 2. build -------------------------------------------------------------
-    kernels = ["crop_resize_normalize", "row_gather"]
+    kernels = ["crop_resize_normalize", "row_gather", "plane_sweep_fuse"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
         sim_lib = ex.submit(sim_bindings.build)     # g++, beside the nvcc builds
@@ -2952,7 +3044,7 @@ def run():
 
     # 14. heuristic + AdaPose on pot and mug; collect -> inference -------------
     heur_launches, heur_err = heuristic_eval(np, torch, dev, card)
-    inf_launches = inference_batch(np, torch, dev, card)
+    inf_launches, inf_k2_launches, k2_f32 = inference_batch(np, torch, dev, card)
 
     # 15. bf16 (the JAX package's default compute dtype); every generation -----
     bf16_launches, bf16_err, (t_rgb, t_win, t_S) = bf16_estimates(np, torch, dev, card)
@@ -2974,7 +3066,7 @@ def run():
     config_generator()
 
     # 20. multi-device: entry() and dryrun_multichip through nccl -----------------
-    entry_launches = entry_forward(np, torch, dev, card)
+    entry_launches, entry_k2_launches, k2_bf16 = entry_forward(np, torch, dev, card)
     dryrun_launches = multi_device(np, torch, dev, card)
     check(entry_launches == dryrun_launches == (0, 0),
           f"entry() and the dryrun launched (K1, K5) {entry_launches} and {dryrun_launches}")
@@ -3038,7 +3130,21 @@ def run():
         "bound_ms": k5_bound_ms,
         "bound_by": k5_bound_by,
         "library_ms": k5_ms["library"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "rgbmanip_tpu_torch/csrc/plane_sweep_fuse.cu",
+        "replaces": "rgbmanip_tpu/models/pose_estimator/nets/stereo.py:38",
+        "launches": n,
+        "max_abs_err": 0.0,         # held bit for bit on every call of the path
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "shape": list(shape),
+    } for name, n, (ms, plain, bound, shape, _) in (
+        ("plane_sweep_fuse", inf_k2_launches, k2_f32),
+        ("plane_sweep_fuse_bf16", entry_k2_launches, k2_bf16))]}
 
 
 def main():

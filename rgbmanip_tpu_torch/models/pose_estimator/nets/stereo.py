@@ -31,7 +31,10 @@ BatchNorm.
 
 Layouts at the public functions follow the JAX package: NHWC images and
 features, (B, N, C) points, and ``homo_warp_batched`` returning
-(B, D, H, W, C). Inside, ``Conv3d`` runs NCDHW. The JAX package's banded
+(B, D, H, W, C). Inside, ``Conv3d`` runs NCDHW. Where no gradient is
+recorded on the card, the bilinear warp and its fusing add run as K2
+(``ops/plane_sweep.py``, bit for bit the eager warp), which writes each
+fused volume straight into that layout. The JAX package's banded
 ``CostRegNet2D`` is a TPU execution plan of the same math and parameter tree;
 this module ports ``CostRegNet``.
 """
@@ -45,6 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ....ops import plane_sweep
 from ....ops.gather import flat_gather, point_sample
 from ....utils.logger import span
 from .layers import Conv2d, Conv3d, ConvTranspose3d, Linear
@@ -85,10 +89,24 @@ def _relative_projection(src_proj, ref_proj):
     return proj[:, :3, :3], proj[:, :3, 3]
 
 
+def _rotate(rot, xyz):
+    """The relative rotation of pixel rays xyz (B or 1, 3, M): (B, 3, M)."""
+    return torch.einsum("bij,bjn->bin", rot, xyz.expand(rot.shape[0], -1, -1))
+
+
+def _pixel_rays(H: int, W: int, device):
+    """(1, 3, H * W) rays (x, y, 1) of every pixel of an H x W view."""
+    y, x = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                          torch.arange(W, dtype=torch.float32, device=device),
+                          indexing="ij")
+    return torch.stack([x.reshape(-1), y.reshape(-1),
+                        torch.ones(H * W, device=device)])[None]
+
+
 def _project(rot, trans, xyz, depth_values, H: int, W: int):
     """Pixel rays xyz (B or 1, 3, M) of the ref view at each depth through
     the relative projection: (px, py, inside), each (B, D, M)."""
-    rot_xyz = torch.einsum("bij,bjn->bin", rot, xyz.expand(rot.shape[0], -1, -1))
+    rot_xyz = _rotate(rot, xyz)
     proj_xyz = (rot_xyz[:, :, None, :] * depth_values[:, None, :, None]
                 + trans[:, :, None, None])                         # (B, 3, D, M)
     pz = proj_xyz[:, 2]
@@ -139,14 +157,29 @@ def homo_warp_batched(src_feat, src_proj, ref_proj, depth_values,
     B, H, W, C = src_feat.shape
     D = depth_values.shape[1]
     rot, trans = _relative_projection(src_proj, ref_proj)
-    dev = src_feat.device
-    y, x = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
-                          torch.arange(W, dtype=torch.float32, device=dev),
-                          indexing="ij")
-    xyz = torch.stack([x.reshape(-1), y.reshape(-1),
-                       torch.ones(H * W, device=dev)])[None]       # (1, 3, HW)
+    xyz = _pixel_rays(H, W, src_feat.device)
     px, py, inside = _project(rot, trans, xyz, depth_values, H, W)
     return _sample(src_feat, px, py, inside, mode).reshape(B, D, H, W, C)
+
+
+def fused_volume_plain(src_feat, ref_feat, src_proj, ref_proj, depth_values):
+    """The fused cost volume of the bilinear plane sweep in the U-Net's
+    layout (B, C, D, H, W) by the eager warp, the fusing add and a permuted
+    copy: K2's plain version."""
+    w = homo_warp_batched(src_feat, src_proj, ref_proj, depth_values, "bilinear")
+    return (ref_feat[:, None] + w).permute(0, 4, 1, 2, 3).contiguous()
+
+
+def fused_volume(src_feat, ref_feat, src_proj, ref_proj, depth_values):
+    """``fused_volume_plain``, bit for bit, through K2 (``ops/plane_sweep.py``)
+    on the card, with no (B, D, H, W, C) temporary; elsewhere the plain
+    version itself."""
+    if not src_feat.is_cuda:
+        return fused_volume_plain(src_feat, ref_feat, src_proj, ref_proj, depth_values)
+    B, H, W, C = src_feat.shape
+    rot, trans = _relative_projection(src_proj, ref_proj)
+    rays = _rotate(rot, _pixel_rays(H, W, src_feat.device))
+    return plane_sweep.warp_fuse(src_feat, ref_feat, rays, trans, depth_values)
 
 
 def homo_warp(src_feat, src_proj, ref_proj, depth_values, mode: str = "bilinear"):
@@ -382,6 +415,21 @@ class _PoseNet(nn.Module):
         return R, self.translation_estimator(x), self.size_estimator(x)
 
 
+def volume_points(fused, idx, channels_first: bool = False):
+    """The D x C values of a fused volume at flat cells ``idx`` (B, N) of its
+    H x W grid: (B, N, D, C), contiguous. ``fused`` is (B, D, H, W, C), or
+    with ``channels_first`` the U-Net's (B, C, D, H, W), read in place (a
+    gather of C * D strided values a point, where the other layout costs a
+    permuted copy of the whole volume)."""
+    if channels_first:
+        B, C, D = fused.shape[:3]
+        table = fused.reshape(B, C * D, -1).transpose(1, 2)        # (B, HW, C * D)
+        return flat_gather(table, idx).reshape(B, -1, C, D).transpose(2, 3).contiguous()
+    B, D, H, W, C = fused.shape
+    table = fused.permute(0, 2, 3, 1, 4).reshape(B, H * W, D * C)
+    return flat_gather(table, idx).reshape(B, -1, D, C)
+
+
 def _rows_cols(choose, S: int):
     return torch.div(choose, S, rounding_mode="floor"), choose % S
 
@@ -430,6 +478,14 @@ class StereoPoseNetWithDepth(_PoseNet):
                 self.camera_pts_mlp = _mlp((3, 32, 64), nn.ReLU(), dtype)
             self._build_heads(64 + (64 if realworld_pts else C), dtype)
 
+    def k2_applies(self, feat) -> bool:
+        """Whether the forward builds its fused volumes with K2: the bilinear
+        warp with both views fused, no gradient recorded, and features on the
+        card. Elsewhere (the CPU, training, the nearest warp) the eager warp,
+        K2's plain twin, builds them."""
+        return (self.warp_mode == "bilinear" and self.stereo_fusion
+                and not torch.is_grad_enabled() and feat.is_cuda)
+
     def forward(self, v1_img, v1_choose, v2_img, v2_choose, v1_proj, v2_proj,
                 depth_values, v1_pts2d=None, v2_pts2d=None):
         """v*_img (B, S, S, 3); v*_choose (B, N) flat pixel indices;
@@ -472,9 +528,14 @@ class StereoPoseNetWithDepth(_PoseNet):
                     return self.volume_reduce(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
                 f1v, f2v = reduce(f1v), reduce(f2v)
         C = f1v.shape[-1]
+        # K2: the fused volumes straight into the U-Net's layout (B, C, D, Sv, Sv)
+        k2 = self.k2_applies(f1v)
 
         with span("stereo/warp"):
-            if self.stereo_fusion:
+            if k2:
+                fused1 = fused_volume(f2v, f1v, p2v, p1v, depth_values)
+                fused2 = fused_volume(f1v, f2v, p1v, p2v, depth_values)
+            elif self.stereo_fusion:
                 w2 = homo_warp_batched(f2v, p2v, p1v, depth_values, self.warp_mode)
                 w1 = homo_warp_batched(f1v, p1v, p2v, depth_values, self.warp_mode)
                 fused1 = f1v[:, None] + w2             # (B, D, Sv, Sv, C)
@@ -484,7 +545,7 @@ class StereoPoseNetWithDepth(_PoseNet):
                 fused2 = f2v[:, None].expand(B, D, Sv, Sv, C)
 
         def cost(fused):                       # -> (B, Sv, Sv, D)
-            vol = fused.permute(0, 4, 1, 2, 3).contiguous()   # (B, C, D, Sv, Sv)
+            vol = fused if k2 else fused.permute(0, 4, 1, 2, 3).contiguous()
             return self.cost_regularization(vol)[:, 0].permute(0, 2, 3, 1)
 
         with span("stereo/cost_reg"):
@@ -526,12 +587,10 @@ class StereoPoseNetWithDepth(_PoseNet):
                 def pose_feat(fused, choose, prob, nocs):
                     # depth-probability-weighted volume features at the nearest
                     # volume cell of each chosen pixel
-                    Bp = fused.shape[0]
                     r, c = _rows_cols(choose, S)
                     py = torch.div(r, vs, rounding_mode="floor").clamp(0, Sv - 1)
                     px = torch.div(c, vs, rounding_mode="floor").clamp(0, Sv - 1)
-                    table = fused.permute(0, 2, 3, 1, 4).reshape(Bp, Sv * Sv, D * C)
-                    pts = flat_gather(table, py * Sv + px).reshape(Bp, -1, D, C)
+                    pts = volume_points(fused, py * Sv + px, channels_first=k2)
                     # the products with the probabilities rounded to the dtype,
                     # summed in f32 and rounded once (XLA keeps the products in
                     # f32 for the sum)

@@ -1097,3 +1097,110 @@ def test_bf16_paper_estimate_equals_the_per_bin_pooling_on_card(cuda, monkeypatc
     assert all(torch.equal(a, b) for a, b in zip(new_feats, old_feats))
     assert set(new) == set(old)
     assert all(np.array_equal(new[k], old[k], equal_nan=True) for k in old)
+
+
+# ------------------------------------------------------------ K2 --
+@pytest.mark.parametrize("shape,dtype", [((16, 24, 224, 224, 32), torch.bfloat16),
+                                         ((4, 8, 56, 56, 32), torch.float32)],
+                         ids=["published-bf16", "small-f32"])
+def test_k2_kernel_equals_the_eager_warp(cuda, shape, dtype):
+    """K2 against the eager bilinear warp plus the fusing add (and the
+    U-Net's permuted copy), bit for bit, both directions: at the published
+    network's shape (B, D, H, W, C) in bf16 and at a smaller one in f32, on
+    ``tests/test_torch_plane_sweep.py``'s geometry (points on and off the
+    image, behind the camera, on tap ties)."""
+    from test_torch_plane_sweep import bits, eager, features, geometry
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    from rgbmanip_tpu_torch.ops import plane_sweep
+
+    B, D, Hv, Wv, C = shape
+    p1, p2, depth = geometry(B, Hv, Wv, D, seed=7, device=cuda)
+    f1, f2 = features(B, Hv, Wv, C, dtype, seed=8, device=cuda)
+    before = plane_sweep.warp_fuse.launches
+    for src, ref, sp, rp in ((f2, f1, p2, p1), (f1, f2, p1, p2)):
+        got = stereo.fused_volume(src, ref, sp, rp, depth)
+        want = eager(src, ref, sp, rp, depth)
+        assert got.shape == (B, C, D, Hv, Wv) and got.dtype == dtype
+        assert torch.equal(bits(got), bits(want))
+        del got, want
+    assert plane_sweep.warp_fuse.launches - before == 2
+    # a permuted view of the features, as the PSPNet hands them
+    perm = f1.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert torch.equal(bits(stereo.fused_volume(f2, perm, p2, p1, depth)),
+                       bits(eager(f2, f1, p2, p1, depth)))
+
+
+@pytest.mark.parametrize("C,dtype,offset", [
+    (8, torch.bfloat16, 0), (16, torch.float32, 0),      # 1 and 4 vectors a row
+    (12, torch.float32, 0), (80, torch.bfloat16, 0),     # 3 and 10: any count
+    (4, torch.bfloat16, 0), (3, torch.float32, 0),       # no whole vector
+    (8, torch.float32, 1)],                              # maps off 16-byte alignment
+    ids=["bf16-c8", "f32-c16", "f32-c12", "bf16-c80", "bf16-c4", "f32-c3", "f32-c8-offset"])
+def test_k2_kernel_takes_any_row_width(cuda, C, dtype, offset):
+    """K2 against the eager warp, bit for bit, at feature widths and
+    addresses other than the published network's: rows of whole 16-byte
+    vectors by the vector kernel, any other row channel by channel; with a
+    singular view (zero extrinsics) in the batch."""
+    from test_torch_plane_sweep import bits, eager, features, geometry
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    from rgbmanip_tpu_torch.ops import plane_sweep
+
+    B, D, Hv, Wv = 3, 5, 20, 24
+    p1, p2, depth = geometry(B, Hv, Wv, D, seed=11, device=cuda)
+    p2[2] = 0.0
+    f1, f2 = features(B, Hv, Wv, C, dtype, seed=12, device=cuda)
+    if offset:
+        buf = torch.empty(f1.numel() + offset, dtype=dtype, device=cuda)
+        f1 = buf[offset:].view(f1.shape).copy_(f1)
+        assert f1.data_ptr() % 16
+    before = plane_sweep.warp_fuse.launches
+    for src, ref, sp, rp in ((f2, f1, p2, p1), (f1, f2, p1, p2)):
+        got = stereo.fused_volume(src, ref, sp, rp, depth)
+        want = eager(src, ref, sp, rp, depth)
+        assert got.shape == (B, C, D, Hv, Wv) and got.dtype == dtype
+        assert torch.equal(bits(got), bits(want))
+    assert plane_sweep.warp_fuse.launches - before == 2
+
+
+def test_k2_parity_estimate_equals_the_eager_warp_on_card(cuda, monkeypatch):
+    """adapose_cabinet at the published resolution (volume_scale 1, bilinear
+    warp) in bf16 at B=4 on seeded weights: under the profiler K2 runs twice
+    a call (``k2_launches`` 2 in ``stereo/warp``), and the outputs equal bit
+    for bit those of the eager warp, with cuDNN's deterministic algorithms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets.stereo import StereoPoseNetWithDepth
+    from rgbmanip_tpu_torch.ops import plane_sweep
+    from rgbmanip_tpu_torch.utils.logger import SPANS
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = load_group("pose_estimator", "adapose_cabinet",
+                     {"load": False, "volume_scale": 1, "warp_mode": "bilinear"})
+    est = AdaPoseEstimator(cfg, device=cuda, seed=0, dtype=torch.bfloat16)
+    args = [torch.from_numpy(a).to(cuda) for a in estimate_args(4, seed=3)]
+
+    def call():
+        est.generator.manual_seed(3)
+        return est.estimate_full(*args)
+    before = plane_sweep.warp_fuse.launches
+    on = call()
+    assert plane_sweep.warp_fuse.launches - before == 2
+    SPANS.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            traced = call()
+            torch.cuda.synchronize()
+        s = SPANS.summary()
+    finally:
+        SPANS.reset()
+    assert s["stereo/warp"]["k2_launches"] == 2
+    monkeypatch.setattr(StereoPoseNetWithDepth, "k2_applies", lambda self, feat: False)
+    before = plane_sweep.warp_fuse.launches
+    off = call()
+    assert plane_sweep.warp_fuse.launches == before
+    assert on["valid"].any()
+    for out in (on, traced):
+        assert set(out) == set(off)
+        assert all(np.array_equal(out[k], off[k], equal_nan=True) for k in off)

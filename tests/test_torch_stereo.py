@@ -9,6 +9,8 @@ a few ulps times the depth of the network: 1e-4 absolute on outputs of
 order 1.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -155,12 +157,26 @@ def test_homo_warp_batched_matches_jax(mode):
         np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("warp_mode", ["nearest", "bilinear"])
-def test_stereo_net_matches_jax(weights, warp_mode):
+@pytest.mark.parametrize("warp_mode,k2", [pytest.param("nearest", False, id="nearest"),
+                                          pytest.param("bilinear", False, id="bilinear"),
+                                          pytest.param("bilinear", True, id="bilinear-k2")])
+def test_stereo_net_matches_jax(weights, warp_mode, k2, monkeypatch):
     """Against the JAX module as the estimator builds it: its default
-    banded execution plan of the 3-D U-Net, which the port runs as Conv3d."""
+    banded execution plan of the 3-D U-Net, which the port runs as Conv3d.
+    With ``k2`` the forward takes K2's route as on the card (``k2_applies``
+    asked of features on the card): ``fused_volume`` (its plain twin here)
+    into the U-Net's (B, C, D, H, W) layout, read without a permuted copy,
+    and the pose features gathered from that layout."""
     from rgbmanip_tpu.models.pose_estimator.nets.stereo import StereoPoseNetWithDepth
 
+    calls = []
+    if k2:
+        applies, fused_volume = (port_stereo.StereoPoseNetWithDepth.k2_applies,
+                                 port_stereo.fused_volume)
+        monkeypatch.setattr(port_stereo.StereoPoseNetWithDepth, "k2_applies",
+                            lambda self, feat: applies(self, SimpleNamespace(is_cuda=True)))
+        monkeypatch.setattr(port_stereo, "fused_volume",
+                            lambda *a: calls.append(1) or fused_volume(*a))
     params, batch_stats = weights
     x = inputs()
     model = StereoPoseNetWithDepth(regress_pose=True, warp_mode=warp_mode, **KNOBS)
@@ -170,6 +186,7 @@ def test_stereo_net_matches_jax(weights, warp_mode):
     load_jax_params(net, params, batch_stats)
     with torch.no_grad():
         out = net(*(torch.from_numpy(a) for a in x))
+    assert len(calls) == (2 if k2 else 0)
     assert set(out) == set(ref)
     for k in sorted(ref):
         r = np.asarray(ref[k])
