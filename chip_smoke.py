@@ -110,7 +110,8 @@ before it and read just after. Phases:
      bilinearly at full resolution); the same batch on the card and on the
      CPU with the same draws within 1e-3 m and equal valid flags; K2 on the
      card estimate's own calls, (8, 32, 24, 224, 224) in f32, bit for bit
-     against the eager warp and timed beside its bound; the estimate's wall
+     against the eager warp in the channels-last layout both write, and
+     timed beside its bound; the estimate's wall
      time, device busy time, idle share and top kernels at B=8
  15. bf16, the JAX package's default compute dtype: the flagship and
      paper-size estimates with K1's bf16 entry point, ``evaluate`` on the
@@ -147,7 +148,9 @@ before it and read just after. Phases:
      unsharded step's on the card. Neither path launches K1 or K5 (the
      dryrun's batches come cropped, as the JAX dryrun's do); ``entry()``
      launches K2 twice a forward, held bit for bit against the eager warp
-     on its own calls in bf16 and timed
+     in the channels-last layout on its own calls in bf16 and timed; and the
+     bf16 U-Net at the parity cell's volume, (16, 32, 24, 224, 224), timed
+     on K2's channels-last layout and on an NCDHW copy
  21. the evaluation sweep and the failure diagnostics
      (``rgbmanip_tpu_torch/scripts/``), each through its ``main`` or the
      sweep's own row loop, with every launch counter set to 0 just before
@@ -191,7 +194,8 @@ apart as ``crop_resize_normalize_bf16``, its clamping mode's as
 ``crop_resize_normalize_clamp`` and ``crop_resize_normalize_clamp_bf16``:
 no path runs the latter, since both packages' samplers crop in f32; K2's
 f32 launches, phase 14's, as ``plane_sweep_fuse`` and its bf16 launches,
-phase 20's, as ``plane_sweep_fuse_bf16``, each timed on its path's calls),
+phase 20's, as ``plane_sweep_fuse_bf16``, each timed on its path's calls,
+the latter with the bf16 U-Net's time in both layouts as ``library_ms``),
 the line before that the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``. Without a card the script exits 1 and
 prints no result.
@@ -405,12 +409,13 @@ def k2_recorded(calls):
 
 def k2_on_path(torch, calls, card, label):
     """K2 on the calls a path made (``k2_recorded``): each replayed against
-    its plain version (``stereo.fused_volume_plain``: the eager warp, the
-    fusing add and the U-Net's permuted copy) bit for bit, then K2's device
-    time per launch beside its bound (the fused volume written once and both
-    feature maps read once, ``portbench/counts/k2.py``, over the card's
-    memory bandwidth) and the plain version's. Returns (ms, plain ms, bound
-    ms, shape (B, C, D, H, W), dtype)."""
+    its plain version (``stereo.fused_volume_plain``: the eager warp and the
+    fusing add) in the U-Net's channels-last-3d layout, the same strides and
+    the same bits in the (B, D, H, W, C) rows, then K2's device time per
+    launch beside its bound (the fused volume written once and both feature
+    maps read once, ``portbench/counts/k2.py``, over the card's memory
+    bandwidth) and the plain version's. Returns (ms, plain ms, bound ms,
+    shape (B, C, D, H, W), dtype)."""
     from portbench.counts import k2
     from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
     from rgbmanip_tpu_torch.scripts.perfutil import HBM_BYTES_PER_S
@@ -422,10 +427,15 @@ def k2_on_path(torch, calls, card, label):
         for args in calls:
             got = stereo.fused_volume(*args)
             want = stereo.fused_volume_plain(*args)
+            check(got.is_contiguous(memory_format=torch.channels_last_3d)
+                  and got.stride() == want.stride(),
+                  f"{label}: K2's volume {tuple(got.shape)} has strides {got.stride()}, its "
+                  f"plain twin's {want.stride()}: both are channels-last")
+            rows, plain = got.permute(0, 2, 3, 4, 1), want.permute(0, 2, 3, 4, 1)
             check(got.shape == want.shape and got.dtype == want.dtype
-                  and torch.equal(got.view(bits[got.dtype]), want.view(bits[want.dtype])),
+                  and torch.equal(rows.view(bits[got.dtype]), plain.view(bits[want.dtype])),
                   f"{label}: K2 differs from the eager warp at {tuple(got.shape)} {got.dtype}")
-            del got, want
+            del got, want, rows, plain
         torch.cuda.synchronize()
         kern = device_times(torch, lambda: [stereo.fused_volume(*a) for a in calls], n=5)
         k2_ms = {n: v for n, v in kern.items() if "plane_sweep_fuse" in n}
@@ -438,10 +448,39 @@ def k2_on_path(torch, calls, card, label):
     dtype = calls[0][0].dtype
     bound = k2.launch_bytes(B, C, D, H, W, calls[0][0].element_size()) / HBM_BYTES_PER_S * 1e3
     say("time", f"{card} | K2 on {label}'s own calls, (B, C, D, H, W) = {(B, C, D, H, W)} "
-        f"{dtype}: equal to the eager warp bit for bit, both directions; device time per "
+        f"{dtype}: equal to the eager warp bit for bit in the channels-last layout, both "
+        f"directions; device time per "
         f"launch {ms:.4f} ms ({bound / ms * 100:.1f}% of the {bound:.4f} ms bytes bound), "
         f"plain {plain:.4f} ms")
     return ms, plain, bound, (B, C, D, H, W), dtype
+
+
+def unet_layouts(torch, dev, card):
+    """K2's yardstick: the 3-D U-Net (``CostRegNet``, 32 channels in, base
+    8, seeded weights, eval) in bf16 at the parity cell's volume (B, C, D, H,
+    W) = (16, 32, 24, 224, 224), device time per forward on the volume as K2
+    writes it (channels-last-3d, the card's layout: ``stereo.unet_input``)
+    and on a contiguous NCDHW copy of it (the layout K2 wrote before), where
+    cuDNN converts layouts and takes its direct dgrad for the transposed
+    convolutions. Returns {"unet_ndhwc": ms, "unet_ncdhw": ms}."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    net = stereo.CostRegNet(32, base=8, dtype=torch.bfloat16)
+    net = stereo.flax_init_(net, torch.Generator().manual_seed(0)).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randn(16, 24, 224, 224, 32, generator=g, device=dev).to(torch.bfloat16)
+    vol = stereo.unet_input(rows.permute(0, 4, 1, 2, 3))
+    check(vol.data_ptr() == rows.data_ptr(), "unet_input copied K2's bf16 volume on the card")
+    ncdhw = vol.contiguous()
+    out = {}
+    with torch.inference_mode():
+        for name, x in (("unet_ndhwc", vol), ("unet_ncdhw", ncdhw)):
+            out[name] = sum(device_times(torch, lambda: net(x), n=3).values())
+    say("time", f"{card} | the bf16 U-Net at (16, 32, 24, 224, 224): {out['unet_ndhwc']:.3f} ms "
+        f"a forward channels-last (K2's layout), {out['unet_ncdhw']:.3f} ms NCDHW")
+    del rows, vol, ncdhw
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------- the evaluation --
@@ -3067,6 +3106,7 @@ def run():
 
     # 20. multi-device: entry() and dryrun_multichip through nccl -----------------
     entry_launches, entry_k2_launches, k2_bf16 = entry_forward(np, torch, dev, card)
+    unet_ms = unet_layouts(torch, dev, card)
     dryrun_launches = multi_device(np, torch, dev, card)
     check(entry_launches == dryrun_launches == (0, 0),
           f"entry() and the dryrun launched (K1, K5) {entry_launches} and {dryrun_launches}")
@@ -3141,10 +3181,13 @@ def run():
         "plain_ms": plain,
         "bound_ms": bound,
         "bound_by": "bytes",
+        # the layer after K2 in each dtype's layout: in bf16 the U-Net on
+        # K2's channels-last volume and on an NCDHW copy; f32 runs NCDHW
+        "library_ms": library,
         "shape": list(shape),
-    } for name, n, (ms, plain, bound, shape, _) in (
-        ("plane_sweep_fuse", inf_k2_launches, k2_f32),
-        ("plane_sweep_fuse_bf16", entry_k2_launches, k2_bf16))]}
+    } for name, n, (ms, plain, bound, shape, _), library in (
+        ("plane_sweep_fuse", inf_k2_launches, k2_f32, None),
+        ("plane_sweep_fuse_bf16", entry_k2_launches, k2_bf16, unet_ms))]}
 
 
 def main():

@@ -7,7 +7,7 @@
 // because the estimator at its published resolution (volume_scale 1, 224 px,
 // 24 depths, 32 channels) spends the eager warp's tens of milliseconds
 // writing and re-reading (B, D, H, W, C) temporaries: four gathers, their
-// weighted sum, the mask, the fusing add and a permuted copy for the U-Net.
+// weighted sum, the mask and the fusing add.
 //
 // What one launch computes, for every (b, d, y, x) of the reference view and
 // each channel c, from the source features src (B, H, W, C), the reference
@@ -18,7 +18,9 @@
 //   inside = 0 <= px <= W - 1, 0 <= py <= H - 1, p.z > 1e-6,
 //   the 4 taps at floor(px), floor(py) (clamped into the map) and +1,
 //   out[b, c, d, y, x] = ref[b, y, x, c] + inside * sum of the weighted taps,
-// written in (B, C, D, H, W), the layout the 3-D U-Net reads.
+// stored channels-last: memory (B, D, H, W, C), each point's C channels one
+// contiguous row. That is the (B, C, D, H, W) volume in the channels-last-3d
+// layout the 3-D U-Net runs in on the card (cuDNN's NDHWC engines).
 //
 // Rounding: op for op that of the eager path (stereo.py's _project, _sample
 // and the fusing add), so that the output equals it bit for bit. Each f32
@@ -38,16 +40,20 @@
 // channel pair. The least traffic is the output written once plus both
 // feature maps read once (portbench/counts/k2.py).
 //
-// Design. One thread per point (b, d, y, x), neighbouring threads on
-// neighbouring x: the projection, the taps and the weights are computed
-// once a point, then the channels go by 16-byte vectors (8 bf16 or 4 f32
-// channels): the 4 taps' vectors and the reference's, read through the
-// read-only path (a sample's maps, 3.2 MB each in bf16, stay in L2 while
-// the threads of its depths run), and each result channel stored to its
-// (c, d) plane with a streaming store, coalesced across the warp, so that
-// the output stream does not push the features out of L2. A row that is no
-// whole number of 16-byte vectors, or maps at an address that is no multiple
-// of 16, go channel by channel through the same arithmetic
+// Design. A group of G lanes per point (b, d, y, x), neighbouring groups on
+// neighbouring x: each lane of the group computes the point's projection,
+// taps and weights (the same few operations, so that no lane waits on
+// another), then takes every G-th 16-byte vector of the row (8 bf16 or 4
+// f32 channels), with G the largest of 8, 4, 2, 1 that divides the row's
+// vector count. A group reads each tap's row and the reference's as whole
+// contiguous rows through the read-only path (a sample's maps, 3.2 MB each
+// in bf16, stay in L1 and L2 while the threads of its depths run), and the
+// warp's 32 / G points are 32 / G consecutive rows of the output, so that
+// where G is the vector count (the published 32 channels) each streaming
+// store of the warp writes 512 contiguous bytes: every 32-byte sector whole
+// at once, and the output stream does not push the features out of L2. A
+// row that is no whole number of 16-byte vectors, or maps at an address that
+// is no multiple of 16, go channel by channel through the same arithmetic
 // (plane_sweep_fuse_rows_kernel).
 
 #include <cuda_bf16.h>
@@ -168,24 +174,6 @@ struct Weights<__nv_bfloat16> {
   static constexpr int kPerVec = 8;
 };
 
-__device__ __forceinline__ void store_channels(float* o, long long plane, const uint4& v) {
-  __stcs(o, __uint_as_float(v.x));
-  __stcs(o + plane, __uint_as_float(v.y));
-  __stcs(o + 2 * plane, __uint_as_float(v.z));
-  __stcs(o + 3 * plane, __uint_as_float(v.w));
-}
-
-__device__ __forceinline__ void store_channels(__nv_bfloat16* o, long long plane,
-                                               const uint4& v) {
-  unsigned short* p = reinterpret_cast<unsigned short*>(o);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    __stcs(p + (2 * k) * plane, static_cast<unsigned short>(w[k] & 0xFFFFu));
-    __stcs(p + (2 * k + 1) * plane, static_cast<unsigned short>(w[k] >> 16));
-  }
-}
-
 // One point (b, d, y, x): its 4 taps' pixels, the fractions of its source
 // position and whether it lands inside the source image.
 struct Point {
@@ -225,16 +213,19 @@ __device__ __forceinline__ Point project(const float* __restrict__ rays,
   return p;
 }
 
-// Rows of whole 16-byte vectors: kVecs of them, or `vecs` where kVecs is 0.
-template <typename T, int kVecs>
+// Rows of whole 16-byte vectors: kVecs of them, or `vecs` where kVecs is 0,
+// kGroup lanes a point.
+template <typename T, int kVecs, int kGroup>
 __global__ void __launch_bounds__(256)
 plane_sweep_fuse_kernel(const uint4* __restrict__ src, const uint4* __restrict__ ref,
                         const float* __restrict__ rays, const float* __restrict__ trans,
-                        const float* __restrict__ depth, T* __restrict__ out, int B, int H,
-                        int W, int D, int vecs) {
+                        const float* __restrict__ depth, uint4* __restrict__ out, int B,
+                        int H, int W, int D, int vecs) {
   const int M = H * W;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long t = lane / kGroup;                   // the point
   if (t >= static_cast<long long>(B) * D * M) return;
+  const int g = static_cast<int>(lane % kGroup);       // the lane's place in its group
   const int i = static_cast<int>(t);
   const int m = i % M;
   const int bd = i / M;
@@ -250,14 +241,11 @@ plane_sweep_fuse_kernel(const uint4* __restrict__ src, const uint4* __restrict__
   const uint4* g10 = s + p.t10 * nv;
   const uint4* g11 = s + p.t11 * nv;
   const uint4* q = ref + (static_cast<long long>(b) * M + m) * nv;
-  const long long plane = static_cast<long long>(D) * M;      // one channel's (D, H, W)
-  const int C = nv * Weights<T>::kPerVec;
-  T* o = out + static_cast<long long>(b) * C * plane + static_cast<long long>(d) * M + m;
+  uint4* o = out + t * nv;                    // the point's row of out (B, D, H, W, C)
 #pragma unroll
-  for (int v = 0; v < nv; ++v) {
-    const uint4 res = w.vec(__ldg(g00 + v), __ldg(g01 + v), __ldg(g10 + v), __ldg(g11 + v),
-                            __ldg(q + v));
-    store_channels(o + v * Weights<T>::kPerVec * plane, plane, res);
+  for (int v = g; v < nv; v += kGroup) {
+    __stcs(o + v, w.vec(__ldg(g00 + v), __ldg(g01 + v), __ldg(g10 + v), __ldg(g11 + v),
+                        __ldg(q + v)));
   }
 }
 
@@ -283,11 +271,9 @@ plane_sweep_fuse_rows_kernel(const typename Weights<T>::Raw* __restrict__ src,
   const Weights<T> w(p.fx, p.fy, p.inside);
   const long long s = static_cast<long long>(b) * M * C;
   const long long q = (static_cast<long long>(b) * M + m) * C;
-  const long long plane = static_cast<long long>(D) * M;
-  typename Weights<T>::Raw* o =
-      out + static_cast<long long>(b) * C * plane + static_cast<long long>(d) * M + m;
+  typename Weights<T>::Raw* o = out + t * C;  // the point's row of out (B, D, H, W, C)
   for (int c = 0; c < C; ++c) {
-    __stcs(o + c * plane,
+    __stcs(o + c,
            w.scalar(__ldg(src + s + p.t00 * C + c), __ldg(src + s + p.t01 * C + c),
                     __ldg(src + s + p.t10 * C + c), __ldg(src + s + p.t11 * C + c),
                     __ldg(ref + q + c)));
@@ -299,8 +285,6 @@ int launch(const void* src, const void* ref, const void* rays, const void* trans
            const void* depth, void* out, int B, int H, int W, int C, int D, void* stream) {
   const long long n = static_cast<long long>(B) * D * H * W;
   if (n == 0 || C == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ra = static_cast<const float*>(rays);
   const float* tr = static_cast<const float*>(trans);
@@ -310,36 +294,36 @@ int launch(const void* src, const void* ref, const void* rays, const void* trans
       ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(ref)) & 15u) == 0;
   if (C % per != 0 || !aligned) {
     using Raw = typename Weights<T>::Raw;
-    plane_sweep_fuse_rows_kernel<T><<<blocks, threads, 0, st>>>(
+    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+    plane_sweep_fuse_rows_kernel<T><<<blocks, 256, 0, st>>>(
         static_cast<const Raw*>(src), static_cast<const Raw*>(ref), ra, tr, de,
         static_cast<Raw*>(out), B, H, W, C, D);
     return static_cast<int>(cudaGetLastError());
   }
   const uint4* s = static_cast<const uint4*>(src);
   const uint4* r = static_cast<const uint4*>(ref);
-  T* o = static_cast<T*>(out);
+  uint4* o = static_cast<uint4*>(out);
   const int vecs = C / per;
-  switch (vecs) {
-#define K2_CASE(V)                                                                      \
-  case V:                                                                               \
-    plane_sweep_fuse_kernel<T, V><<<blocks, threads, 0, st>>>(s, r, ra, tr, de, o, B, H, \
-                                                              W, D, vecs);              \
-    break;
-    K2_CASE(1)
-    K2_CASE(2)
-    K2_CASE(4)
-    K2_CASE(8)
-#undef K2_CASE
-    default:
-      plane_sweep_fuse_kernel<T, 0><<<blocks, threads, 0, st>>>(s, r, ra, tr, de, o, B, H, W,
-                                                                D, vecs);
-  }
+  const int group = vecs % 8 == 0 ? 8 : vecs % 4 == 0 ? 4 : vecs % 2 == 0 ? 2 : 1;
+  const unsigned blocks = static_cast<unsigned>((n * group + 255) / 256);
+#define K2_LAUNCH(V, G)                                                                   \
+  plane_sweep_fuse_kernel<T, V, G><<<blocks, 256, 0, st>>>(s, r, ra, tr, de, o, B, H, W, D, \
+                                                           vecs)
+  if (vecs == 1) K2_LAUNCH(1, 1);
+  else if (vecs == 2) K2_LAUNCH(2, 2);
+  else if (vecs == 4) K2_LAUNCH(4, 4);
+  else if (vecs == 8) K2_LAUNCH(8, 8);
+  else if (group == 8) K2_LAUNCH(0, 8);
+  else if (group == 4) K2_LAUNCH(0, 4);
+  else if (group == 2) K2_LAUNCH(0, 2);
+  else K2_LAUNCH(0, 1);
+#undef K2_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points. src, ref (B, H, W, C) and out (B, C, D, H, W) in the
+// Plain C entry points. src, ref (B, H, W, C) and out (B, D, H, W, C) in the
 // entry point's dtype, rays (B, 3, H * W), trans (B, 3) and depth (B, D) in
 // f32, all contiguous, any C; B * D * H * W < 2^31. Launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() (0 on success).

@@ -31,10 +31,14 @@ BatchNorm.
 
 Layouts at the public functions follow the JAX package: NHWC images and
 features, (B, N, C) points, and ``homo_warp_batched`` returning
-(B, D, H, W, C). Inside, ``Conv3d`` runs NCDHW. Where no gradient is
-recorded on the card, the bilinear warp and its fusing add run as K2
-(``ops/plane_sweep.py``, bit for bit the eager warp), which writes each
-fused volume straight into that layout. The JAX package's banded
+(B, D, H, W, C). Inside, the U-Net takes the volume as (B, C, D, H, W): on
+the card in the channels-last-3d layout, the memory (B, D, H, W, C) that the
+warp writes, so that its convolutions reach cuDNN's NDHWC tensor-core
+engines with no layout conversion; elsewhere contiguous NCDHW
+(``unet_input``). Where no gradient is recorded on the card, the bilinear
+warp and its fusing add run as K2 (``ops/plane_sweep.py``, bit for bit the
+eager warp), which writes each fused volume straight into that layout. The
+JAX package's banded
 ``CostRegNet2D`` is a TPU execution plan of the same math and parameter tree;
 this module ports ``CostRegNet``.
 """
@@ -50,7 +54,7 @@ from torch import nn
 
 from ....ops import plane_sweep
 from ....ops.gather import flat_gather, point_sample
-from ....utils.logger import span
+from ....utils.logger import count, span
 from .layers import Conv2d, Conv3d, ConvTranspose3d, Linear
 from .pspnet import PSPNet
 
@@ -162,12 +166,21 @@ def homo_warp_batched(src_feat, src_proj, ref_proj, depth_values,
     return _sample(src_feat, px, py, inside, mode).reshape(B, D, H, W, C)
 
 
+def fuse(warped, ref_feat):
+    """The fusing add of a warped volume (B, D, H, W, C) and the reference
+    features (B, H, W, C), as the U-Net's (B, C, D, H, W) in the
+    channels-last-3d layout: a permuted view of the sum, whose memory is
+    (B, D, H, W, C) whatever the strides of ``ref_feat`` (the PSPNet hands a
+    permuted view), since PyTorch lays an elementwise result out after its
+    first operand. The sum is ``ref_feat + warped`` bit for bit."""
+    return (warped + ref_feat[:, None]).permute(0, 4, 1, 2, 3)
+
+
 def fused_volume_plain(src_feat, ref_feat, src_proj, ref_proj, depth_values):
-    """The fused cost volume of the bilinear plane sweep in the U-Net's
-    layout (B, C, D, H, W) by the eager warp, the fusing add and a permuted
-    copy: K2's plain version."""
+    """The fused cost volume of the bilinear plane sweep by the eager warp
+    and the fusing add (``fuse``), channels-last: K2's plain version."""
     w = homo_warp_batched(src_feat, src_proj, ref_proj, depth_values, "bilinear")
-    return (ref_feat[:, None] + w).permute(0, 4, 1, 2, 3).contiguous()
+    return fuse(w, ref_feat)
 
 
 def fused_volume(src_feat, ref_feat, src_proj, ref_proj, depth_values):
@@ -318,8 +331,30 @@ class DeconvBnRelu3d(nn.Module):
         return F.relu(self.bn(self.conv(x)))
 
 
+def unet_input(vol):
+    """The fused volume (B, C, D, H, W), of any strides, in the layout the
+    U-Net runs in, which follows the volume's device and dtype. On the card in
+    a reduced dtype (bf16) channels-last-3d, memory (B, D, H, W, C): every
+    convolution of ``CostRegNet`` then reaches cuDNN's NDHWC tensor-core
+    engines, with no layout conversion around it and no direct-dgrad fallback
+    for the transposed ones, and every activation keeps the layout. K2's
+    volume and the eager volume's permuted view are already in it, so nothing
+    is copied; each such volume adds 1 to the span counter ``ndhwc_volumes``.
+    Elsewhere contiguous NCDHW: on the CPU, the layout the CPU tests and the
+    JAX comparisons hold; on the card in f32, where with TF32 off cuDNN has no
+    NDHWC tensor-core engine and keeps its direct dgrad, so that channels-last
+    only adds conversions (on an H100 at (8, 32, 24, 224, 224) the f32 U-Net
+    took 57.3 ms NCDHW and 62.9 ms NDHWC)."""
+    if vol.is_cuda and vol.dtype != torch.float32:
+        count(ndhwc_volumes=1)
+        return vol.contiguous(memory_format=torch.channels_last_3d)
+    return vol.contiguous()
+
+
 class CostRegNet(nn.Module):
-    """3-D U-Net over the fused volume (B, C, D, H, W) -> (B, 1, D, H, W)."""
+    """3-D U-Net over the fused volume (B, C, D, H, W) -> (B, 1, D, H, W).
+    Every op keeps its input's memory format (``unet_input``): the
+    convolutions, ``FlaxBatchNorm3d``, the ReLUs and the skip adds."""
 
     def __init__(self, in_ch: int, base: int = 8, dtype=torch.float32):
         super().__init__()
@@ -415,19 +450,14 @@ class _PoseNet(nn.Module):
         return R, self.translation_estimator(x), self.size_estimator(x)
 
 
-def volume_points(fused, idx, channels_first: bool = False):
-    """The D x C values of a fused volume at flat cells ``idx`` (B, N) of its
-    H x W grid: (B, N, D, C), contiguous. ``fused`` is (B, D, H, W, C), or
-    with ``channels_first`` the U-Net's (B, C, D, H, W), read in place (a
-    gather of C * D strided values a point, where the other layout costs a
-    permuted copy of the whole volume)."""
-    if channels_first:
-        B, C, D = fused.shape[:3]
-        table = fused.reshape(B, C * D, -1).transpose(1, 2)        # (B, HW, C * D)
-        return flat_gather(table, idx).reshape(B, -1, C, D).transpose(2, 3).contiguous()
-    B, D, H, W, C = fused.shape
-    table = fused.permute(0, 2, 3, 1, 4).reshape(B, H * W, D * C)
-    return flat_gather(table, idx).reshape(B, -1, D, C)
+def volume_points(fused, idx):
+    """The D x C values of a fused volume, the U-Net's (B, C, D, H, W), at
+    flat cells ``idx`` (B, N) of its H x W grid: (B, N, D, C), contiguous.
+    Read in place whatever the volume's strides: a view (B, H * W, D, C) of
+    it gathered at ``idx``, D rows of C values a point (each row contiguous in
+    the channels-last layout the warp writes), with no copy of the volume."""
+    table = fused.permute(0, 3, 4, 2, 1).flatten(1, 2)             # (B, HW, D, C)
+    return flat_gather(table, idx).contiguous()
 
 
 def _rows_cols(choose, S: int):
@@ -528,25 +558,23 @@ class StereoPoseNetWithDepth(_PoseNet):
                     return self.volume_reduce(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
                 f1v, f2v = reduce(f1v), reduce(f2v)
         C = f1v.shape[-1]
-        # K2: the fused volumes straight into the U-Net's layout (B, C, D, Sv, Sv)
-        k2 = self.k2_applies(f1v)
 
+        # each fused volume as the U-Net's (B, C, D, Sv, Sv) over the
+        # (B, D, Sv, Sv, C) rows the warp writes: channels-last-3d
         with span("stereo/warp"):
-            if k2:
+            if self.k2_applies(f1v):
                 fused1 = fused_volume(f2v, f1v, p2v, p1v, depth_values)
                 fused2 = fused_volume(f1v, f2v, p1v, p2v, depth_values)
             elif self.stereo_fusion:
                 w2 = homo_warp_batched(f2v, p2v, p1v, depth_values, self.warp_mode)
                 w1 = homo_warp_batched(f1v, p1v, p2v, depth_values, self.warp_mode)
-                fused1 = f1v[:, None] + w2             # (B, D, Sv, Sv, C)
-                fused2 = f2v[:, None] + w1
+                fused1, fused2 = fuse(w2, f1v), fuse(w1, f2v)
             else:   # the ablation: each view's volume is its own features, no warp
-                fused1 = f1v[:, None].expand(B, D, Sv, Sv, C)
-                fused2 = f2v[:, None].expand(B, D, Sv, Sv, C)
+                fused1 = f1v[:, None].expand(B, D, Sv, Sv, C).permute(0, 4, 1, 2, 3)
+                fused2 = f2v[:, None].expand(B, D, Sv, Sv, C).permute(0, 4, 1, 2, 3)
 
         def cost(fused):                       # -> (B, Sv, Sv, D)
-            vol = fused if k2 else fused.permute(0, 4, 1, 2, 3).contiguous()
-            return self.cost_regularization(vol)[:, 0].permute(0, 2, 3, 1)
+            return self.cost_regularization(unet_input(fused))[:, 0].permute(0, 2, 3, 1)
 
         with span("stereo/cost_reg"):
             cost1, cost2 = both(cost, (fused1, fused2))
@@ -590,7 +618,7 @@ class StereoPoseNetWithDepth(_PoseNet):
                     r, c = _rows_cols(choose, S)
                     py = torch.div(r, vs, rounding_mode="floor").clamp(0, Sv - 1)
                     px = torch.div(c, vs, rounding_mode="floor").clamp(0, Sv - 1)
-                    pts = volume_points(fused, py * Sv + px, channels_first=k2)
+                    pts = volume_points(fused, py * Sv + px)
                     # the products with the probabilities rounded to the dtype,
                     # summed in f32 and rounded once (XLA keeps the products in
                     # f32 for the sum)

@@ -3,11 +3,13 @@
 ``warp_fuse(src, ref, rays, trans, depth)`` is the fused cost volume of one
 direction of the stereo network's plane sweep: the reference features plus
 the source features warped bilinearly over the depth hypotheses, zero where
-a ray leaves the source image or falls behind its camera, written in
-(B, C, D, H, W), the layout the 3-D U-Net reads, by
+a ray leaves the source image or falls behind its camera, by
 ``csrc/plane_sweep_fuse.cu`` on the card, for f32 or bf16 features of any
-width. Its plain version is the eager path of
-``models/pose_estimator/nets/stereo.py`` (``fused_volume_plain``).
+width. It is returned as (B, C, D, H, W) in the channels-last-3d layout the
+3-D U-Net runs in on the card: the memory is (B, D, H, W, C), each point's
+channels one contiguous row. Its plain version is the eager path of
+``models/pose_estimator/nets/stereo.py`` (``fused_volume_plain``), which
+returns the same layout.
 
 The kernel computes, op for op, what that eager path computes (``_project``,
 ``_sample`` in bilinear mode and the fusing add): the projection of each
@@ -62,7 +64,8 @@ def _check(src, ref, rays, trans, depth):
 def warp_fuse(src, ref, rays, trans, depth):
     """K2. src, ref (B, H, W, C) f32 or bf16 on the card; rays (B, 3,
     H * W), trans (B, 3), depth (B, D) f32 on the same device. Returns the
-    fused volume (B, C, D, H, W)."""
+    fused volume (B, C, D, H, W), channels-last-3d: a permuted view of the
+    (B, D, H, W, C) rows the kernel writes."""
     _check(src, ref, rays, trans, depth)
     if not src.is_cuda:
         raise ValueError(f"K2 runs on the card, not on {src.device}: the eager warp "
@@ -77,7 +80,7 @@ def warp_fuse(src, ref, rays, trans, depth):
     # they are whole vectors at aligned addresses, else channel by channel
     src, ref = src.contiguous(), ref.contiguous()
     rays, trans, depth = rays.contiguous(), trans.contiguous(), depth.contiguous()
-    out = torch.empty((B, C, D, H, W), dtype=src.dtype, device=src.device)
+    out = torch.empty((B, D, H, W, C), dtype=src.dtype, device=src.device)
     fn = _entry(src.dtype)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
@@ -87,7 +90,7 @@ def warp_fuse(src, ref, rays, trans, depth):
         raise RuntimeError(f"plane_sweep_fuse kernel launch failed: cudaError {err}")
     warp_fuse.launches += 1
     count(k2_launches=1)
-    return out
+    return out.permute(0, 4, 1, 2, 3)
 
 
 # kernel launches so far; a run sets it to 0 and reads it to show that its

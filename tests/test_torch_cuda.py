@@ -1204,3 +1204,154 @@ def test_k2_parity_estimate_equals_the_eager_warp_on_card(cuda, monkeypatch):
     for out in (on, traced):
         assert set(out) == set(off)
         assert all(np.array_equal(out[k], off[k], equal_nan=True) for k in off)
+
+
+# ------------------------------------------------- the U-Net's channels-last volume --
+@pytest.mark.parametrize("shape,dtype", [((16, 24, 224, 224, 32), torch.bfloat16),
+                                         ((4, 8, 56, 56, 32), torch.float32)],
+                         ids=["published-bf16", "small-f32"])
+def test_k2_writes_the_plain_twins_channels_last_layout(cuda, shape, dtype):
+    """K2 and its plain twin (``fused_volume_plain``) return the same
+    channels-last-3d volume, both directions: the same strides, each point's
+    C channels one contiguous row of memory (B, D, H, W, C), and the same
+    bits in it."""
+    from test_torch_plane_sweep import features, geometry
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    B, D, Hv, Wv, C = shape
+    p1, p2, depth = geometry(B, Hv, Wv, D, seed=7, device=cuda)
+    f1, f2 = features(B, Hv, Wv, C, dtype, seed=8, device=cuda)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[dtype]
+    for src, ref, sp, rp in ((f2, f1, p2, p1), (f1, f2, p1, p2)):
+        got = stereo.fused_volume(src, ref, sp, rp, depth)
+        want = stereo.fused_volume_plain(src, ref, sp, rp, depth)
+        assert got.shape == want.shape == (B, C, D, Hv, Wv) and got.dtype == dtype
+        assert got.is_contiguous(memory_format=torch.channels_last_3d)
+        assert got.stride() == want.stride() and not got.is_contiguous()
+        rows, plain = got.permute(0, 2, 3, 4, 1), want.permute(0, 2, 3, 4, 1)
+        assert rows.is_contiguous() and plain.is_contiguous()
+        assert torch.equal(rows.view(ints), plain.view(ints))
+        del got, want, rows, plain
+
+
+def parity_unet(dtype, dev):
+    """The published network's U-Net (32 channels in, base 8) on seeded
+    weights, in eval mode, and a fused volume of the parity cell's shape
+    (B, C, D, H, W) = (16, 32, 24, 224, 224) as K2 writes it, channels-last."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    net = stereo.CostRegNet(32, base=8, dtype=dtype)
+    net = stereo.flax_init_(net, torch.Generator().manual_seed(0)).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randn(16, 24, 224, 224, 32, generator=g, device=dev).to(dtype)
+    return net, rows.permute(0, 4, 1, 2, 3)
+
+
+def test_parity_unet_channels_last_agrees_with_ncdhw_on_card(cuda, monkeypatch):
+    """The bf16 U-Net at the parity cell's shape on the channels-last volume
+    against the same U-Net on the contiguous NCDHW volume (the layout before),
+    with cuDNN's deterministic algorithms. Every module's output stays
+    channels-last. Tolerance: the two runs are the same bf16 math (f32
+    accumulation, one rounding a layer) summed in another order, which flips
+    a bf16 rounding only where an f32 sum lies on a rounding boundary; so they
+    must agree far better than bf16 agrees with f32: the gap between the
+    layouts is at most a quarter of the bf16 U-Net's mean gap from its f32
+    twin (TF32 off) and at most its largest gap."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    net, vol = parity_unet(torch.bfloat16, cuda)
+    seen = {}
+    with torch.inference_mode():
+        ncdhw = net(vol.contiguous()).float()
+        for name, mod in net.named_modules():
+            if name:
+                mod.register_forward_hook(lambda m, i, o, name=name: seen.__setitem__(
+                    name, o.is_contiguous(memory_format=torch.channels_last_3d)))
+        ndhwc = net(stereo.unet_input(vol))
+        assert ndhwc.is_contiguous(memory_format=torch.channels_last_3d)
+        ndhwc = ndhwc.float()
+        twin = stereo.CostRegNet(32, base=8).to(cuda).eval()
+        twin.load_state_dict(net.state_dict())
+        f32 = twin(vol.float().contiguous())
+    assert len(seen) == 31 and all(seen.values()), seen
+    layout, bf16 = (ndhwc - ncdhw).abs(), (ncdhw - f32).abs()
+    msg = (f"layouts part by mean {layout.mean().item():.3e} max {layout.max().item():.3e}; "
+           f"bf16 from f32 mean {bf16.mean().item():.3e} max {bf16.max().item():.3e}")
+    print(msg)
+    assert layout.mean() <= 0.25 * bf16.mean(), msg
+    assert layout.max() <= bf16.max(), msg
+
+
+def test_parity_unet_launches_no_layout_conversion_or_direct_dgrad(cuda):
+    """Each module of the bf16 U-Net at the parity cell's shape, profiled on
+    its own input as the channels-last forward hands it (the volume from
+    ``unet_input``): no cuDNN layout conversion (``nchwToNhwc``,
+    ``nhwcToNchw``) of an activation and no direct-dgrad fallback
+    (``dgrad2d_grouped_direct``) for the transposed convolutions. The one
+    exception is ``prob``, the one-output-channel convolution, whose cuDNN
+    kernel (not a tensor-core one) takes its 216-value filter in NCDHW: that
+    conversion is allowed, and told from one of an activation by its time,
+    under 10 us, where converting even ``prob``'s 38 MB output would take
+    over 20 us at the card's memory bandwidth."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    net, vol = parity_unet(torch.bfloat16, cuda)
+    inputs = {}
+    for name, mod in net.named_children():
+        mod.register_forward_pre_hook(lambda m, a, name=name: inputs.__setitem__(name, a[0]))
+    conversions = ("dgrad2d_grouped_direct", "nchwToNhwc", "nhwcToNchw")
+    with torch.inference_mode():
+        net(stereo.unet_input(vol))
+        assert len(inputs) == 11
+        for name, mod in net.named_children():
+            x = inputs[name]
+            assert x.is_contiguous(memory_format=torch.channels_last_3d), name
+            mod(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                mod(x)
+                torch.cuda.synchronize()
+            kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA}
+            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+            print(name, [(k[:90], round(ms, 3)) for k, ms in top])
+            bad = {k: ms for k, ms in kernels.items() if any(c in k for c in conversions)}
+            if name == "prob":
+                bad = {k: ms for k, ms in bad.items() if "nhwcToNchw" not in k or ms >= 0.01}
+            assert kernels and not bad, (name, bad, top)
+
+
+@pytest.mark.parametrize("over,dtype,volumes", [
+    ({"volume_scale": 1, "warp_mode": "bilinear"}, torch.bfloat16, 2),
+    ({}, torch.bfloat16, 2),
+    ({"volume_scale": 1, "warp_mode": "bilinear"}, torch.float32, 0)],
+    ids=["parity-k2-bf16", "paper-eager-bf16", "parity-k2-f32"])
+def test_each_traced_estimate_counts_two_ndhwc_volumes_on_card(cuda, over, dtype, volumes):
+    """``ndhwc_volumes`` in ``stereo/cost_reg`` reads 2 for each traced bf16
+    estimate on the card, through K2 (the parity configuration) and through
+    the eager warp (the paper configuration); in f32 the U-Net runs NCDHW on
+    the card (``stereo.unet_input``) and it reads 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbmanip_tpu_torch.utils.logger import SPANS
+
+    cfg = load_group("pose_estimator", "adapose_cabinet", {"load": False, **over})
+    est = AdaPoseEstimator(cfg, device=cuda, seed=0, dtype=dtype)
+    args = [torch.from_numpy(a).to(cuda) for a in estimate_args(2, seed=3)]
+    est.estimate_full(*args)
+    SPANS.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            for _ in range(3):
+                est.estimate_full(*args)
+            torch.cuda.synchronize()
+        s = SPANS.summary()
+    finally:
+        SPANS.reset()
+    assert s["stereo/cost_reg"]["calls"] == 3
+    assert s["stereo/cost_reg"].get("ndhwc_volumes", 0) == volumes

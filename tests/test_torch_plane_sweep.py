@@ -1,7 +1,7 @@
 """K2, the fused bilinear plane-sweep warp (``ops/plane_sweep.py``), on the
 CPU: off the card ``fused_volume`` is its plain twin, the eager warp plus the
 fusing add (``nets/stereo.py``: ``homo_warp_batched`` over ``_project`` and
-``_sample``) in the U-Net's (B, C, D, H, W) layout, in f32 and bf16, both
+``_sample``) as the U-Net's (B, C, D, H, W), channels-last, in f32 and bf16, both
 directions, on a geometry with points on and off the image, behind the
 camera and on tap ties (the card's tests use it too); the pose features'
 gather from that layout against the permuted gather; and the forward taking
@@ -76,8 +76,8 @@ def features(B, H, W, C, dtype, seed, device="cpu"):
 
 
 def eager(src, ref, src_proj, ref_proj, depth):
-    """Today's fused volume: the eager bilinear warp plus the fusing add,
-    then the U-Net's permuted copy."""
+    """The fused volume as the eager path wrote it before K2: the bilinear
+    warp plus the fusing add, then a permuted copy, contiguous NCDHW."""
     w = stereo.homo_warp_batched(src, src_proj, ref_proj, depth, "bilinear")
     return (ref[:, None] + w).permute(0, 4, 1, 2, 3).contiguous()
 
@@ -86,15 +86,18 @@ def eager(src, ref, src_proj, ref_proj, depth):
 @pytest.mark.parametrize("direction", ["2->1", "1->2"])
 def test_plain_twin_equals_the_eager_warp(dtype, direction):
     """Off the card ``fused_volume`` is ``fused_volume_plain``: the eager
-    warp, the fusing add and the U-Net's permuted copy; and ``geometry``
-    reaches every case the kernel has to get right."""
+    warp and the fusing add, as the U-Net's (B, C, D, H, W) in the
+    channels-last-3d layout (no permuted copy), with the values of the
+    contiguous volume; and ``geometry`` reaches every case the kernel has to
+    get right."""
     B, H, W, C, D = 3, 12, 16, 8, 6
     p1, p2, depth = geometry(B, H, W, D, seed=4)
     f1, f2 = features(B, H, W, C, dtype, seed=5)
     src, ref, sp, rp = (f2, f1, p2, p1) if direction == "2->1" else (f1, f2, p1, p2)
     got = stereo.fused_volume(src, ref, sp, rp, depth)
     want = eager(src, ref, sp, rp, depth)
-    assert got.shape == (B, C, D, H, W) and got.dtype == dtype and got.is_contiguous()
+    assert got.shape == (B, C, D, H, W) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
     assert torch.equal(bits(got), bits(want))
     assert torch.equal(bits(stereo.fused_volume_plain(src, ref, sp, rp, depth)), bits(want))
     # the cases are there: inside and outside the image, behind the camera,
@@ -130,10 +133,11 @@ def test_volume_points_from_the_unet_layout_equal_the_permuted_gather(dtype):
     old = stereo.flat_gather(fused.permute(0, 2, 3, 1, 4).reshape(B, H * W, D * C),
                              idx).reshape(B, N, D, C)
     vol = fused.permute(0, 4, 1, 2, 3).contiguous()
-    new = stereo.volume_points(vol, idx, channels_first=True)
+    new = stereo.volume_points(vol, idx)
     assert new.is_contiguous() and new.shape == (B, N, D, C)
     assert torch.equal(bits(new), bits(old))
-    assert torch.equal(bits(stereo.volume_points(fused, idx)), bits(old))
+    # and from the channels-last view of the same rows, as the warp writes it
+    assert torch.equal(bits(stereo.volume_points(fused.permute(0, 4, 1, 2, 3), idx)), bits(old))
     # and the probability-weighted sum the pose features take of it
     w = torch.rand(B, N, D, 1, generator=g).to(dtype).float()
     assert torch.equal((new.float() * w).sum(2), (old.float() * w).sum(2))
