@@ -5,15 +5,17 @@ those parts should see.
     python -m rgbmanip_tpu_torch.scripts.bf16_step_spread [--seeds 7 8 9]
 
 For each seed, ``train_estimator.main`` at the production recipe
-(``scripts/tunnel_watch_estimator.sh:66-70``, 8 envs, as ``chip_smoke.py``
-phase 15c runs it) in bf16 on the card from the committed head for 3
-steps; then, from the head it saved, one ``EstimatorTrainer`` step on each
-2-env slice of the last batch and on the whole batch, in bf16 and f32, on
-the card and on the CPU. For each slice and loss part
-it gives ``r``, the card's bf16 part's relative difference from the CPU's,
-and ``c``, the CPU's own bf16-to-f32 relative difference, which phase 15c's
-gate holds ``r`` against; and ``r`` for four steps on the card that a
-sound card does not take:
+(``scripts/tunnel_watch_estimator.sh:66-70``, 8 envs, as
+``tests/test_torch_cuda.py::test_estimator_trainer_main_on_card`` runs it)
+in bf16 on the card from the committed head for 3 steps; then, from the
+head it saved, one ``EstimatorTrainer`` step on each 2-env slice of the
+last batch and on the whole batch, in bf16 and f32, on the card and on the
+CPU. For each slice and loss part it gives ``r``, the card's bf16 part's
+relative difference from the CPU's, and ``c``, the CPU's own bf16-to-f32
+relative difference, which the gate of ``tests/test_torch_cuda.py::
+test_bf16_estimator_training_step_on_card_matches_cpu`` holds ``r``
+against; and ``r`` for four steps on the card that a sound card does not
+take:
 
 - ``f32``: the card's f32 step in bf16's place;
 - ``fused_bias``: bf16 with every layer's bias added inside its product,
@@ -25,7 +27,7 @@ Then, for each seed, the least multiplier ``k`` at which the rule
 ``r <= max(k * c, 1e-2)`` passes every part of every slice, and of the
 whole batch, for the sound step and for each control (a limit of ``k``
 rejects exactly the runs that need more), and the card's bf16-to-f32
-difference summed over the slices over the CPU's (phase 15c's other check
+difference summed over the slices over the CPU's (that test's other check
 holds it at half or more). Its last line of output is one JSON object; on
 a card only.
 """
@@ -49,9 +51,9 @@ CKPT = "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"
 RECIPE = ["dataset=cabinet_train", "task=open_cabinet", "task.num_envs=8",
           "img_size=192", "backend=resnet18", "backbone_stride=32", "volume_scale=8",
           "n_depth=16", "d_interval=0.15", "warp_mode=nearest", "reuse=8"]
-FLOOR = 1e-2          # phase 15c's least bound, relative
+FLOOR = 1e-2          # the card test's least bound, relative
 CONTROLS = ("f32", "fused_bias", "shift1", "shift4")
-ENVS, STEPS = 2, 3    # phase 15c's slice width and training steps
+ENVS, STEPS = 2, 3    # the card tests' batch width and bf16 training steps
 
 
 def _fused_apply(mod, fn, x, bias_view):

@@ -28,7 +28,6 @@ import importlib.util
 import json
 import os
 import re
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -45,17 +44,16 @@ from rgbmanip_tpu_torch.models.pose_estimator.groundtruth_estimator import (
     GroundTruthPoseEstimator)
 from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
 from rgbmanip_tpu_torch.scripts import (bench_estimate, bench_ppo_iter, bench_ppo_update,
-                                        bench_sim_scaling)
+                                        bench_sim_scaling, bf16_step_spread)
 
 from test_torch_paper_estimator import init_shapes_only, seeded_tree
 from test_torch_ppo_train import actor_of, as_state, critic_of, max_diff
 from test_torch_rl_loop import jax_pallas_crop, uniforms_of
+from torch_card_cpu import TIE_PX, Disagreement, estimate_projections, view2_raised
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.append(REPO)
-import chip_smoke  # noqa: E402  (the repo's root: its card-against-CPU check)
 B = 2
 
 
@@ -135,7 +133,7 @@ def test_the_bench_views_put_the_volume_border_rows_on_a_tie(estimates):
     bottom border exactly: in f64 within 1e-6 px (the warp's 1e-9 in the
     depth divisor), so f32 rounding alone decides whether those rays fall
     inside (the card and the CPU part by 1.4 cm there).
-    ``chip_smoke.view2_raised`` moves them 0.04-0.9 px off the border at
+    ``torch_card_cpu.view2_raised`` moves them 0.04-0.9 px off the border at
     every depth hypothesis."""
     pest = estimates["estimators"][1]
     m = pest.model
@@ -144,7 +142,7 @@ def test_the_bench_views_put_the_volume_border_rows_on_a_tie(estimates):
     K, rgb1, mask, ext1, rgb2, ext2 = bench.bench_inputs(1, bench.SEED, "cpu")
     u = torch.rand(1, pest.img_size ** 2, generator=torch.Generator().manual_seed(0))
     dist = {}
-    for name, e2 in (("own", ext2), ("raised", chip_smoke.view2_raised(ext2))):
+    for name, e2 in (("own", ext2), ("raised", view2_raised(ext2))):
         seen = []
         hook = m.register_forward_pre_hook(lambda mod, args: seen.append(args))
         try:
@@ -161,8 +159,8 @@ def test_the_bench_views_put_the_volume_border_rows_on_a_tie(estimates):
 
 
 def test_the_tie_replay_takes_only_border_decisions(estimates):
-    """``chip_smoke.estimate_projections``, with which the smoke and the card
-    tests hold the card's bench estimate to the CPU's on the bench's own
+    """``torch_card_cpu.estimate_projections``, with which the card tests
+    hold the card's bench estimate to the CPU's on the bench's own
     views: replaying a run's own projections changes nothing; a flipped
     decision of a ray on the border is taken; a flipped decision off the
     border, or coordinates 0.01 px apart, fail the check."""
@@ -170,14 +168,14 @@ def test_the_tie_replay_takes_only_border_decisions(estimates):
     K, rgb1, mask, ext1, rgb2, ext2 = bench.bench_inputs(1, bench.SEED, "cpu")
     u = torch.rand(1, pest.img_size ** 2, generator=torch.Generator().manual_seed(0))
     inputs = (K, rgb1, mask, ext1, rgb2, mask, ext2, u, u)
-    (bbox, valid), calls, taken = chip_smoke.estimate_projections(torch, pest, inputs)
+    (bbox, valid), calls, taken = estimate_projections(pest, inputs)
     assert calls and taken == 0
-    (rbox, rvalid), _, taken = chip_smoke.estimate_projections(torch, pest, inputs, calls)
+    (rbox, rvalid), _, taken = estimate_projections(pest, inputs, calls)
     assert taken == 0 and np.array_equal(rbox, bbox) and np.array_equal(rvalid, valid)
 
     px, py, inside = calls[0]
     H = W = pest.img_size // pest.model.volume_scale
-    on_border = (py.abs() < chip_smoke.TIE_PX) | ((py - (H - 1)).abs() < chip_smoke.TIE_PX)
+    on_border = (py.abs() < TIE_PX) | ((py - (H - 1)).abs() < TIE_PX)
     off_border = ((px - (W - 1) / 2).abs() < 2) & ((py - (H - 1) / 2).abs() < 2) & inside
 
     def flipped(where):
@@ -186,13 +184,12 @@ def test_the_tie_replay_takes_only_border_decisions(estimates):
         flip.view(-1)[i] = ~flip.view(-1)[i]
         return [(px, py, flip)] + calls[1:]
 
-    _, _, taken = chip_smoke.estimate_projections(torch, pest, inputs, flipped(on_border))
+    _, _, taken = estimate_projections(pest, inputs, flipped(on_border))
     assert taken == 1
-    with pytest.raises(chip_smoke.SmokeError, match="off the border"):
-        chip_smoke.estimate_projections(torch, pest, inputs, flipped(off_border))
-    with pytest.raises(chip_smoke.SmokeError, match="projections part"):
-        chip_smoke.estimate_projections(torch, pest, inputs,
-                                        [(px + 0.01, py, inside)] + calls[1:])
+    with pytest.raises(Disagreement, match="off the border"):
+        estimate_projections(pest, inputs, flipped(off_border))
+    with pytest.raises(Disagreement, match="projections part"):
+        estimate_projections(pest, inputs, [(px + 0.01, py, inside)] + calls[1:])
 
 
 def jax_script_value(path, name, **names):
@@ -246,8 +243,9 @@ def test_bench_refuses_a_missing_checkpoint():
         bench.estimator("checkpoints/no_such_estimator.ckpt", torch.float32, "cpu")
 
 
-@pytest.mark.parametrize("main", [bench.main, bench_estimate.main, bench_ppo_update.main],
-                         ids=["bench", "bench_estimate", "bench_ppo_update"])
+@pytest.mark.parametrize("main", [bench.main, bench_estimate.main, bench_ppo_update.main,
+                                  bf16_step_spread.main],
+                         ids=["bench", "bench_estimate", "bench_ppo_update", "bf16_step_spread"])
 def test_the_timing_scripts_refuse_the_cpu(main):
     with pytest.raises(RuntimeError, match="card"):
         main([])

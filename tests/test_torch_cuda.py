@@ -1,14 +1,23 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
-versions, and the estimates (flagship and paper-size) and the policy on the
-card against the CPU.
+versions, and every path that runs the estimator or the policy on the card
+against the same path on the CPU: the estimates (flagship, paper size,
+bf16, every generation), the service loop, the flagship evaluation round,
+the heuristic rounds, both trainers through their ``main``, the RL skill,
+the URDF fixtures, the real-world env, ``graft_entry``, the sweep, the
+diagnostics and the timing scripts.
 
 These tests need an NVIDIA card and skip without one (a CUDA kernel has no
 CPU mode), but for one that holds the port's CPU bf16 path on that
-machine's PyTorch and runs anywhere. The file imports neither JAX nor the JAX package, so it runs on
-the machine with the card:  python -m pytest tests/test_torch_cuda.py -q
+machine's PyTorch and runs anywhere. The file imports neither JAX nor the
+JAX package, so it runs on the machine with the card, from the repo root:
+python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import contextlib
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +36,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, S = 480, 640, 192
 # (rmin, cmin, side): centred, both frame corners, a 440 px window
 WINDOWS = [(180, 260, 120), (0, 0, 40), (20, 100, 440), (440, 600, 40)]
+FAST = "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"
+POLICY = "checkpoints/ppo_rl_coadapt_model_165.ckpt"
 
 
 @pytest.fixture
@@ -92,12 +103,36 @@ def batches(windows, B, dev):
         yield w[:, 0], w[:, 1], w[:, 2]
 
 
+def k1_windows(mask, size):
+    """The (rmin, cmin, inv_ratio) windows ``prepare_model_input`` hands K1
+    for (B, H, W) masks."""
+    from rgbmanip_tpu_torch.ops.preprocess import mask_bbox_batched, square_window_batched
+
+    y1, x1, y2, x2, _ = mask_bbox_batched(mask.float())
+    rmin, rmax, cmin, _ = square_window_batched(y1, x1, y2, x2, H, W)
+    inv = (rmax - rmin).float() * torch.tensor(1.0 / size, device=mask.device)
+    return rmin.float(), cmin.float(), inv
+
+
+def assert_k1_equals_plain_on(calls, size, dev):
+    """K1 bit for bit against its plain version on both views' windows of
+    each recorded estimate (its (K, rgb1, mask1, ext1, rgb2, mask2, ext2)
+    as numpy arrays)."""
+    for args in calls:
+        for rgb, mask in ((args[1], args[2]), (args[4], args[5])):
+            rgb = torch.as_tensor(np.asarray(rgb), dtype=torch.float32, device=dev)
+            win = k1_windows(torch.as_tensor(np.asarray(mask), device=dev), size)
+            out = k1.crop_resize_normalize(rgb, *win, size)
+            assert torch.equal(out, k1.crop_resize_normalize_plain(rgb, *win, size))
+
+
 @pytest.mark.parametrize("B", [1, 8, 64])
 @pytest.mark.parametrize("S_out", [64, 192, 224, 65])
 def test_k1_kernel_equals_plain_over_the_window_sweep(cuda, S_out, B):
     """f32 bit for bit (the same operations, rounded at the same places);
-    bf16 within one bf16 ulp of the f32 plain version. S = 65 makes a row of
-    S * 3 values that is not a whole number of 4-value vectors."""
+    bf16 bit for bit ``plain(...).to(bf16)``: the kernel rounds its f32
+    result once, to nearest even. S = 65 makes a row of S * 3 values that is
+    not a whole number of 4-value vectors."""
     g = torch.Generator(device=cuda).manual_seed(S_out + B)
     rgb = torch.rand(B, H, W, 3, generator=g, device=cuda)
     scale = torch.tensor(1.0 / S_out, dtype=torch.float32, device=cuda)
@@ -112,8 +147,7 @@ def test_k1_kernel_equals_plain_over_the_window_sweep(cuda, S_out, B):
         assert out.shape == ref.shape == (B, S_out, S_out, 3)
         bad = (out != ref).any(-1).nonzero()
         assert bad.numel() == 0, f"S={S_out} B={B}: first (b, y, x) differing {bad[:4].tolist()}"
-        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
-        assert ((out16.float() - ref).abs() <= ulp).all()
+        assert torch.equal(out16, ref.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("B", [1, 8, 64])
@@ -207,6 +241,52 @@ def test_policy_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(a_gpu, a_cpu, rtol=0, atol=1e-5)
 
 
+def test_service_loop_on_card(cuda):
+    """The estimate/policy/fuse service on the card at the evaluation's B=8
+    for 4 steps: the committed policy's action moves each step's second
+    camera, the flagship estimate (K1 exactly twice a step) turns each view
+    pair into a bbox and ``consensus_fuse`` merges the steps; every output
+    finite. The first step's estimate again on the CPU with the same point
+    draws: equal valid flags, the bbox within 1e-3 m."""
+    from rgbmanip_tpu_torch.models.controller.rl_pose import consensus_fuse
+
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"checkpoint_path": FAST})
+    rl = load_group("controller", "rl")
+    est = AdaPoseEstimator(cfg, device=cuda)
+    policy = PPOPolicy.from_checkpoint(POLICY, rl["policy"], device=cuda)
+    B, steps, M = 8, 4, int(rl["controller"]["max_steps"]) + 1
+    obs = np.random.default_rng(11).normal(size=(B, 60)).astype(np.float32)
+    pred = np.zeros((M, B, 8, 3), np.float32)
+    dist = np.zeros((M, B), np.float32)
+    before = k1.crop_resize_normalize.launches
+    for t in range(1, steps + 1):
+        obs[:, -M:] = 0.0
+        obs[:, -M + t - 1] = 1.0
+        actions = policy.act_inference(obs)
+        K, rgb, mask, ext = scene(B, seed=t)
+        ext[1, :, :3, 3] += 0.1 * np.tanh(actions[:, :3])
+        args = (K, rgb[0], mask[0], ext[0], rgb[1], mask[1], ext[1])
+        if t == 1:
+            first = args
+        pred[t] = est.estimate_full(*args)["bbox"]
+        dist[t] = np.linalg.norm(ext[0, :, :3, 3] - ext[1, :, :3, 3], axis=-1)
+        obs[:, :6] = actions[:, :6]       # the next observation carries the action
+    fused = consensus_fuse(pred, steps, stereo_ok=dist >= 0.04)
+    assert k1.crop_resize_normalize.launches - before == 2 * steps
+    assert np.isfinite(pred[1:]).all() and np.isfinite(fused).all() and fused.shape == (B, 8, 3)
+    assert actions.shape == (B, 12) and np.isfinite(actions).all()
+
+    g = torch.Generator().manual_seed(5)
+    u = [torch.rand(B, S * S, generator=g) for _ in range(2)]
+    out = {}
+    for name, e in (("card", est), ("cpu", AdaPoseEstimator(cfg, device="cpu"))):
+        bbox, valid, _ = e._estimate(*(torch.from_numpy(a).to(e.device) for a in first),
+                                     *(x.to(e.device) for x in u))
+        out[name] = (bbox.cpu().numpy(), valid.cpu().numpy())
+    np.testing.assert_array_equal(out["card"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=0, atol=1e-3)
+
+
 @pytest.mark.parametrize("shape,dtype", [((16, 112, 32, 24), torch.bfloat16),
                                          ((1, 640, 8, 2), torch.bfloat16),
                                          ((16, 112, 32, 24), torch.float32)],
@@ -246,6 +326,9 @@ def test_paper_estimate_on_card_matches_cpu(cuda):
     K, rgb, mask, ext = scene(B, seed=3)
     g = torch.Generator().manual_seed(2)
     u = [torch.rand(B, Sp * Sp, generator=g) for _ in range(2)]
+    m = gpu.model
+    assert (m.backend, m.backbone_stride, m.volume_scale, m.warp_mode, gpu.n_depth,
+            gpu.n_pts) == ("resnet34", 8, 2, "nearest", 24, 1024)
     outs = []
     for est, d in ((gpu, cuda), (cpu, torch.device("cpu"))):
         t = [torch.from_numpy(a).to(d) for a in (K, rgb[0], mask[0], ext[0],
@@ -265,7 +348,6 @@ def test_k1_kernel_equals_plain_on_rendered_views(cuda):
     evaluation's 8 envs, the camera at ControlInterface's first view, the
     crop windows of the rendered handle masks, S=192; bit for bit."""
     from rgbmanip_tpu_torch.config.loader import load_config
-    from rgbmanip_tpu_torch.ops.preprocess import mask_bbox_batched, square_window_batched
     from rgbmanip_tpu_torch.train import prepare_env
     from rgbmanip_tpu_torch.utils.transform import lookat_quat
 
@@ -284,14 +366,188 @@ def test_k1_kernel_equals_plain_on_rendered_views(cuda):
         env.close()
     assert cam["Mask"].any(), "no env saw its handle"
     rgb = torch.from_numpy(cam["Color"]).to(cuda)
-    mask = torch.from_numpy(cam["Mask"]).to(cuda)
-    y1, x1, y2, x2, _ = mask_bbox_batched(mask.float())
-    rmin, rmax, cmin, _ = square_window_batched(y1, x1, y2, x2, H, W)
-    inv = (rmax - rmin).float() * torch.tensor(1.0 / S, device=cuda)
-    out = k1.crop_resize_normalize(rgb, rmin.float(), cmin.float(), inv, S)
-    ref = k1.crop_resize_normalize_plain(rgb, rmin.float(), cmin.float(), inv, S)
-    torch.cuda.synchronize()
-    assert torch.equal(out, ref)
+    win = k1_windows(torch.from_numpy(cam["Mask"]).to(cuda), S)
+    out = k1.crop_resize_normalize(rgb, *win, S)
+    assert torch.equal(out, k1.crop_resize_normalize_plain(rgb, *win, S))
+
+
+# the flagship evaluation as scripts/r5_cabinet_evals.sh runs it, one round
+FLAGSHIP = ["task=open_cabinet", "manipulation=open_cabinet", "controller=rl",
+            f"controller.load={POLICY}", "pose_estimator=adapose_cabinet_fast",
+            f"pose_estimator.checkpoint_path={FAST}", "controller.estimate_fusion=consensus",
+            "controller.early_stop=4", "train=test", "train.total_round=8",
+            "task.num_envs=8", "seed=11"]
+
+
+def play_round(over, device, draws, hook=None):
+    """One round through ``train``'s functions on ``device`` with the
+    overrides ``over``. Each estimate takes its point-sampling draws from
+    ``draws`` (made on the CPU from one seed on the first run, replayed on
+    the second). ``hook(est, ctrl, rec)``, if given, installs a case's
+    recording on the estimator and the controller before the round. Returns
+    the record ``rec``: the estimator's ``size``, the devices of its
+    parameters (``param_devices``) and of every estimate's inputs
+    (``devices``), the round's ``result``, each env's ``success`` and
+    ``move``, and what the hook recorded."""
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.config.loader import load_config
+    from rgbmanip_tpu_torch.utils.logger import get_logger
+
+    cfg = load_config(over + [f"device={device.type}"])
+    log = get_logger()
+    gen = torch.Generator().manual_seed(11)
+    rec = {"devices": set()}
+    env = T.prepare_env(cfg["task"], cfg["dataset"], log=log, seed=cfg["seed"])
+    try:
+        manip = T.prepare_manipulation(env, cfg["manipulation"], log)
+        est = T.prepare_pose_estimator(env, cfg["pose_estimator"], log, device)
+        ctrl = T.prepare_controller(env, est, manip, cfg["controller"], cfg, log,
+                                    device=device)
+        rec["size"] = est.img_size
+        rec["param_devices"] = {p.device.type for p in est.model.parameters()}
+        inner, n_est = est._estimate, []
+
+        def drawn(*args):
+            i = len(n_est)
+            n_est.append(i)
+            if i == len(draws):
+                draws.append([torch.rand(args[1].shape[0], est.img_size ** 2, generator=gen)
+                              for _ in range(2)])
+            rec["devices"] |= {a.device.type for a in args[:7]}
+            return inner(*args[:7], *(u.to(args[1].device) for u in draws[i]))
+        est._estimate = drawn
+        if hook is not None:
+            hook(est, ctrl, rec)
+        rec["result"] = T.test(env, ctrl, cfg, log)
+        obs = env.get_observation()
+        rec["success"] = np.array(obs["success"])
+        rec["move"] = np.array(obs["total_move_distance"])
+    finally:
+        env.close()
+    return rec
+
+
+def flagship_hook(drive=None):
+    """The flagship round's recording: each step's action, frame, mask and
+    per-step bbox, the fused bbox and the estimator's arguments. With
+    ``drive`` (the first run's record) the camera moves by the first run's
+    actions and the skill acts on its fused bbox, while the record keeps
+    this run's own: the actors' f32 actions differ in the last bits, and a
+    camera moved by that much changes pixels at the rendered parts' edges."""
+    def hook(est, ctrl, rec):
+        rec.update(actions=[], frames=[], masks=[], pred_bbox=[], calls=[])
+        rec["param_devices"] |= {p.device.type for p in ctrl.controller.model.parameters()}
+        call = est._call_estimate
+
+        def kept(*args):
+            rec["calls"].append(args)      # numpy arrays made anew for each call
+            return call(*args)
+        est._call_estimate = kept
+        iface = ctrl.control_interface
+        step, act = iface.step, iface.call_manipulation
+
+        def rec_step(action, eval=False):
+            rec["actions"].append(np.array(action, np.float64))
+            if drive is not None:
+                action = drive["actions"][len(rec["actions"]) - 1]
+            out = step(action, eval=eval)
+            t = (iface.accumulate_steps - 1) % iface.max_steps
+            rec["frames"].append(iface.image_queue[t].copy())
+            rec["masks"].append(iface.mask_queue[t].copy())
+            rec["pred_bbox"].append(iface.pred_bbox[t].copy())
+            return out
+
+        def rec_act(estimation, eval=False):
+            rec["fused"] = np.array(estimation)
+            rec["stereo_ok"] = iface.stereo_ok().copy()
+            rec["views_so_far"] = np.cumsum(iface.available, axis=0)
+            rec["first_view"] = (iface.image_queue[0].copy(), iface.mask_queue[0].copy())
+            return act(drive["fused"] if drive is not None else estimation, eval)
+        iface.step, iface.call_manipulation = rec_step, rec_act
+    return hook
+
+
+@pytest.mark.parametrize("dataset", ["cabinet_test", "cabinet_urdf_fixture"])
+def test_flagship_round_on_card_matches_cpu(cuda, dataset):
+    """One round of the flagship evaluation (8 envs, seed 11, k=4,
+    consensus) on the card, K1 exactly twice an estimate (its clamping mode
+    and K5 never) and bit for bit its plain version on every window the
+    round fed it; then on the CPU,
+    lock-stepped to the card's camera moves and fused bbox with the same
+    draws: the rendered frames and masks equal, the actions within 1e-5, the
+    two-view estimates and the fused bbox within 1e-3 m, ``stereo_ok``,
+    success and move distance equal. An estimate from one view duplicated
+    is not held: the warp's in-frame test flips on the volume's border for
+    identical cameras. Also on the cabinet URDF fixture."""
+    over = FLAGSHIP + [f"dataset={dataset}"]
+    draws = []
+    counters = (k1.crop_resize_normalize, k1.crop_resize_normalize_clamp, k5.row_gather)
+    before = [f.launches for f in counters]
+    card = play_round(over, cuda, draws, flagship_hook())
+    n_est = len(card["calls"])
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    assert n_est >= 1 and launched == [2 * n_est, 0, 0]
+    assert card["param_devices"] == card["devices"] == {"cuda"}
+    assert_k1_equals_plain_on(card["calls"], card["size"], cuda)
+
+    cpu = play_round(over, torch.device("cpu"), draws, flagship_hook(drive=card))
+    assert len(cpu["actions"]) == len(card["actions"])
+    for a, b in zip(cpu["first_view"] + tuple(cpu["frames"]) + tuple(cpu["masks"]),
+                    card["first_view"] + tuple(card["frames"]) + tuple(card["masks"])):
+        np.testing.assert_array_equal(a, b)
+    N = len(card["fused"])
+    assert max(float(np.abs(a - b).max())
+               for a, b in zip(cpu["actions"], card["actions"])) <= 1e-5
+    dup = card["views_so_far"][1:len(card["pred_bbox"]) + 1] == 1
+    gaps = np.stack([np.abs(a - b).reshape(N, -1).max(-1)
+                     for a, b in zip(cpu["pred_bbox"], card["pred_bbox"])])
+    assert gaps[~dup].max(initial=0.0) <= 1e-3
+    assert float(np.abs(cpu["fused"] - card["fused"]).max()) <= 1e-3
+    for k in ("stereo_ok", "success", "move"):
+        np.testing.assert_array_equal(cpu[k], card[k], err_msg=k)
+
+
+def k1_in_estimate_spans(path):
+    """K1 kernels in a torch.profiler chrome trace whose launch lies inside
+    an ``estimate`` range (the PhaseTimer's), and all K1 kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "estimate"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "crop_resize_normalize" in e.get("name", "")]
+    inside = [e for e in kernels if any(a <= launch_ts.get(e["args"].get("correlation"), -1) <= b
+                                        for a, b in spans)]
+    return len(inside), len(kernels)
+
+
+def test_the_flagship_command_under_the_profiler_launches_k1_inside_estimates(cuda, tmp_path):
+    """``python -m rgbmanip_tpu_torch.train`` with the flagship evaluation's
+    arguments and ``RGBMANIP_PROFILE`` set, in its own process: after a
+    torch.profiler session of that length (some 10^5 device events), the
+    profiler (torch 2.11) records only part of the device events of later
+    sessions in the same process, and the card tests after this one profile
+    too. It writes ``result.json`` of its 8 episodes, and the trace holds
+    K1 launches inside the loop's ``estimate`` ranges. A profile now and
+    then holds no device events: the run is made once more if the first
+    trace holds no K1 kernel."""
+    for attempt in range(2):
+        run = tmp_path / f"run{attempt}"
+        res = subprocess.run(
+            [sys.executable, "-m", "rgbmanip_tpu_torch.train", *FLAGSHIP, "dataset=cabinet_test",
+             "device=cuda", f"train.save_dir={run}", f"train.log_dir={run}"], cwd=REPO,
+            env=dict(os.environ, RGBMANIP_PROFILE=str(run / "profile")), capture_output=True,
+            text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        inside, n_k1 = k1_in_estimate_spans(run / "profile" / "trace.json")
+        if n_k1:
+            break
+    results = [json.loads(p.read_text()) for p in run.rglob("result.json")]
+    assert len(results) == 1 and results[0]["rounds"] == 8
+    assert inside >= 1
 
 
 def ppo_pair(cuda):
@@ -401,6 +657,7 @@ def test_estimator_training_step_on_card_matches_cpu(cuda):
     (gp, gs), (cp, cs) = out["cuda"][2], out["cpu"][2]
     for k in cs:
         np.testing.assert_allclose(gs[k], cs[k], rtol=1e-4, atol=1e-5, err_msg="/".join(k))
+        assert np.abs(gs[k] - cs[k]).max() <= 1e-4 * (np.abs(cs[k]).max() + 1e-6), k
     assert max(float(np.abs(gp[k] - cp[k]).max()) for k in cp) <= 2.1e-4
 
 
@@ -433,80 +690,222 @@ def test_k1_equals_plain_on_the_samplers_windows(cuda):
     assert torch.equal(batch["img1"], k1.crop_resize_normalize_clamp(*seen[0][:4], S))
 
 
-HEURISTIC_POT = ["dataset=pot_test", "task=open_pot", "manipulation=open_pot",
-                 "pose_estimator=adapose_pot_fast", "controller=heuristic_pose",
-                 "train=test", "task.num_envs=2", "train.total_round=2", "seed=11"]
-
-
-def heuristic_round(device, draws, drive=None):
-    """One round of heuristic + AdaPose on the pot through ``train``'s
-    functions on ``device``. Each estimate takes its point-sampling draws
-    from ``draws`` (made on the CPU on the first run, replayed on the
-    second); with ``drive`` (the first run's record) the skill acts on the
-    first run's bbox."""
+def test_ppo_training_through_train_main_on_card(cuda, tmp_path, monkeypatch):
+    """PPO training of the camera scheduler through ``train.main``
+    (``train=controller``, 8 envs, 2 iterations of 16 transitions, resumed
+    from the committed policy): on the card, K1 twice a rollout step; the
+    last update again on the card and on the CPU from the same batch and
+    state (the learning rate after every step equal, parameters within
+    2e-5 for the actor and 2e-4 for the critic); the saved
+    ``model_<it>.ckpt`` read back into a fresh trainer equal."""
     from rgbmanip_tpu_torch import train as T
-    from rgbmanip_tpu_torch.config.loader import load_config
-    from rgbmanip_tpu_torch.utils.logger import get_logger
+    from rgbmanip_tpu_torch.algo.ppo import PPO
+    from rgbmanip_tpu_torch.utils.checkpoint import flatten
 
-    cfg = load_config(HEURISTIC_POT + [f"device={device.type}"])
-    log = get_logger()
-    gen = torch.Generator().manual_seed(3)
-    rec = {"calls": []}
-    env = T.prepare_env(cfg["task"], cfg["dataset"], log=log, seed=cfg["seed"])
-    try:
-        manip = T.prepare_manipulation(env, cfg["manipulation"], log)
-        est = T.prepare_pose_estimator(env, cfg["pose_estimator"], log, device)
-        ctrl = T.prepare_controller(env, est, manip, cfg["controller"], cfg, log,
-                                    device=device)
-        estimate, inner = est.estimate, est._estimate
+    runs, updates = [], []
+    run, update = PPO.run, PPO._update
 
-        def drawn(*args):
-            i = len(rec["calls"])
-            if i == len(draws):
-                n = est.img_size ** 2
-                draws.append([torch.rand(args[1].shape[0], n, generator=gen)
-                              for _ in range(2)])
-            return inner(*args[:7], *(u.to(args[1].device) for u in draws[i]))
+    def kept_run(self, *args, **kwargs):
+        runs.append(self)
+        return run(self, *args, **kwargs)
+
+    def kept_update(self, batch):
+        updates.append((self.state_tree(), {k: v.detach().cpu().clone()
+                                            for k, v in batch.items()}))
+        return update(self, batch)
+    monkeypatch.setattr(PPO, "run", kept_run)
+    monkeypatch.setattr(PPO, "_update", kept_update)
+    before = k1.crop_resize_normalize.launches
+    T.main(["dataset=cabinet_train", "task=open_cabinet", "manipulation=open_cabinet",
+            "controller=rl", f"controller.load={POLICY}", "pose_estimator=adapose_cabinet_fast",
+            f"pose_estimator.checkpoint_path={FAST}", "train=controller",
+            "train.iterations_per_epoch=2", "task.num_envs=8", "seed=11", "device=cuda",
+            f"controller.learn.save_dir={tmp_path}", f"train.save_dir={tmp_path}",
+            f"train.log_dir={tmp_path}"])
+    launches = k1.crop_resize_normalize.launches - before
+    monkeypatch.undo()
+    assert len(runs) == 1 and len(updates) == 2
+    ppo = runs[0]
+    assert ppo.device.type == "cuda"
+    assert {p.device.type for p in ppo.model.parameters()} == {"cuda"}
+    assert ppo.num_transitions == 16 and launches == 2 * 2 * ppo.num_transitions
+
+    tree, batch = updates[-1]
+    pair = {}
+    for name, d in (("card", cuda), ("cpu", torch.device("cpu"))):
+        pair[name] = PPO(ppo.env, ppo.cfg, seed=0, device=d)
+        pair[name].load_tree(tree)
+        pair[name]._update({k: v.to(d) for k, v in batch.items()})
+    assert pair["card"].update_lrs == pair["cpu"].update_lrs
+    g, c = pair["card"].model.state_dict(), pair["cpu"].model.state_dict()
+    for k in c:
+        tol = 2e-4 if k.startswith("critic.") else 2e-5
+        assert (g[k].cpu() - c[k]).abs().max().item() <= tol, k
+
+    it = ppo.current_learning_iteration
+    back = PPO(ppo.env, ppo.cfg, seed=1, device=cuda)
+    back.load(str(tmp_path / f"model_{it}.ckpt"))
+    mine, theirs = flatten(ppo.state_tree()), flatten(back.state_tree())
+    assert sorted(mine) == sorted(theirs) and back.current_learning_iteration == it
+    assert all(np.array_equal(mine[k], theirs[k]) for k in mine)
+
+
+def estimator_trainer_main(tmp_path, monkeypatch, dtype, steps):
+    """``train_estimator.main`` at the production recipe
+    (``scripts/tunnel_watch_estimator.sh:66-70``: 8 envs, reuse 8, 192 px),
+    resumed from the committed head, ``steps`` steps in f32 (``bf16=0``) or
+    at its default (bf16 compute, f32 parameters), saving its head. Returns
+    (the trained estimator, the saved head's path, the batches its steps
+    took)."""
+    from rgbmanip_tpu_torch.models.pose_estimator import train_estimator as TE
+    from rgbmanip_tpu_torch.models.pose_estimator.training import EstimatorTrainer
+
+    taken = []
+    step = EstimatorTrainer.step
+    monkeypatch.setattr(EstimatorTrainer, "step",
+                        lambda self, batch: taken.append(batch) or step(self, batch))
+    head = str(tmp_path / "head.ckpt")
+    est = TE.main(["dataset=cabinet_train", "task=open_cabinet", "task.num_envs=8", "seed=7",
+                   "img_size=192", "backend=resnet18", "backbone_stride=32", "volume_scale=8",
+                   "n_depth=16", "d_interval=0.15", "warp_mode=nearest", "reuse=8",
+                   f"steps={steps}", f"resume={FAST}", f"save={head}",
+                   f"log_dir={tmp_path / 'logs'}", "log_every=1", "device=cuda"]
+                  + (["bf16=0"] if dtype == "f32" else []))
+    monkeypatch.setattr(EstimatorTrainer, "step", step)
+    return est, head, taken
+
+
+@pytest.mark.parametrize("dtype,steps", [("f32", 5), ("bf16", 3)])
+def test_estimator_trainer_main_on_card(cuda, tmp_path, monkeypatch, dtype, steps):
+    """``estimator_trainer_main`` in f32 and at its default: on the card,
+    every step taken, the sampler's crops K1's clamping mode twice a
+    prepared batch in f32 and the renormalising mode never; the saved head
+    loaded back gives the trained estimator's estimate within 1e-5 m with
+    equal valid flags (both with cuDNN's deterministic algorithms)."""
+    counters = (k1.crop_resize_normalize_clamp, k1.crop_resize_normalize)
+    before = [(f.launches, f.launches_bf16) for f in counters]
+    est, head, taken = estimator_trainer_main(tmp_path, monkeypatch, dtype, steps)
+    (clamp, clamp16), (renorm, _) = [(f.launches - a, f.launches_bf16 - b)
+                                     for f, (a, b) in zip(counters, before)]
+    prepared = est.train_stats["counts"]["prepare"]
+    assert est.train_stats["steps"] == len(taken) == steps
+    assert est.dtype == {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    assert est.device.type == "cuda"
+    assert {(p.device.type, p.dtype) for p in est.model.parameters()} == {("cuda", torch.float32)}
+    assert prepared >= steps and (clamp, clamp16, renorm) == (2 * prepared, 0, 0)
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    back = AdaPoseEstimator(dict(est.cfg, load=True, checkpoint_path=head), device=cuda,
+                            dtype=est.dtype)
+    args = [torch.from_numpy(a).to(cuda) for a in estimate_args(8, seed=4)]
+    g = torch.Generator().manual_seed(6)
+    u = [torch.rand(8, S * S, generator=g).to(cuda) for _ in range(2)]
+    b1, v1, _ = est._estimate(*args, *u)
+    b2, v2, _ = back._estimate(*args, *u)
+    assert torch.equal(v1, v2) and (b1 - b2).abs().max().item() <= 1e-5
+
+
+# heuristic + AdaPose (the README's pot and mug rows, scripts/r5_chain.sh) and
+# the no-fusion ablation (seeded weights), one round of 2 envs each
+HEURISTIC = {
+    "pot": ["dataset=pot_test", "task=open_pot", "manipulation=open_pot",
+            "pose_estimator=adapose_pot_fast"],
+    "mug": ["dataset=mug_test", "task=pick_mug", "manipulation=pick_mug",
+            "pose_estimator=adapose_mug_fast"],
+    "baseline": ["dataset=cabinet_test", "task=open_cabinet", "manipulation=open_cabinet",
+                 "pose_estimator=adapose_baseline"],
+}
+HEURISTIC_RUN = ["controller=heuristic_pose", "train=test", "task.num_envs=2",
+                 "train.total_round=2", "seed=11"]
+
+
+def heuristic_hook(drive=None):
+    """The heuristic round's recording: each estimate's arguments and bbox.
+    With ``drive`` (the first run's record) the skill acts on the first
+    run's bbox."""
+    def hook(est, ctrl, rec):
+        rec["calls"] = []
+        estimate = est.estimate
 
         def recorded(*args):
             bbox = estimate(*args)
             rec["calls"].append(([np.array(a) for a in args], bbox))
             return drive["calls"][len(rec["calls"]) - 1][1] if drive else bbox
-        est._estimate, est.estimate = drawn, recorded
-        before = k1.crop_resize_normalize.launches
-        rec["result"] = T.test(env, ctrl, cfg, log)
-        rec["launches"] = k1.crop_resize_normalize.launches - before
-    finally:
-        env.close()
-    return rec
+        est.estimate = recorded
+    return hook
 
 
-def test_heuristic_pot_round_on_card_matches_cpu(cuda):
-    """The same views bit for bit (fixed viewpoints, the host simulator),
-    K1 twice per estimate on the card, the estimate within 1e-3 m of the
-    CPU's (f32, TF32 off; cuDNN and the CPU sum in another order), and the
-    same success and move distance with both skills on the card's bbox."""
-    draws = []
-    card = heuristic_round(cuda, draws)
-    cpu = heuristic_round(torch.device("cpu"), draws, drive=card)
+@pytest.mark.parametrize("stack", list(HEURISTIC))
+def test_heuristic_pot_round_on_card_matches_cpu(cuda, stack):
+    """On the pot, the mug and the no-fusion ablation (``adapose_baseline``):
+    the same views bit for bit (fixed viewpoints, the host simulator), K1
+    twice per estimate on the card and bit for bit its plain version on the
+    round's windows, the estimate within 1e-3 m of the CPU's (f32, TF32 off;
+    cuDNN and the CPU sum in another order), and the same success and move
+    distance with both skills on the card's bbox."""
+    over, draws = HEURISTIC[stack] + HEURISTIC_RUN, []
+    before = k1.crop_resize_normalize.launches
+    card = play_round(over, cuda, draws, heuristic_hook())
+    launched = k1.crop_resize_normalize.launches - before
+    cpu = play_round(over, torch.device("cpu"), draws, heuristic_hook(drive=card))
     assert len(card["calls"]) == len(cpu["calls"]) == 1
-    assert card["launches"] == 2 and cpu["launches"] == 0
+    assert launched == 2 == k1.crop_resize_normalize.launches - before
+    assert card["param_devices"] == card["devices"] == {"cuda"}
     (args, bbox), (ref_args, ref_bbox) = card["calls"][0], cpu["calls"][0]
     for a, b in zip(args, ref_args):
         np.testing.assert_array_equal(a, b)
+    assert_k1_equals_plain_on([args], card["size"], cuda)
     assert (np.abs(ref_bbox).max(axis=(1, 2)) < 8.0).all(), "a sentinel estimate"
     np.testing.assert_allclose(bbox, ref_bbox, rtol=0, atol=1e-3)
     assert card["result"] == cpu["result"]
+
+
+@contextlib.contextmanager
+def k2_recorded(calls):
+    """Within: the arguments of each call the network makes to
+    ``stereo.fused_volume`` (K2's entry) appended to ``calls``."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    orig = stereo.fused_volume
+
+    def rec(*args):
+        calls.append(args)
+        return orig(*args)
+    stereo.fused_volume = rec
+    try:
+        yield
+    finally:
+        stereo.fused_volume = orig
+
+
+def assert_k2_equals_its_twin_on(calls):
+    """K2 on a path's own recorded calls against its plain twin
+    (``stereo.fused_volume_plain``: the eager warp and the fusing add) in
+    the U-Net's channels-last-3d layout: the same strides, and the same bits
+    in the (B, D, H, W, C) rows."""
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    with torch.inference_mode():
+        for args in calls:
+            got, want = stereo.fused_volume(*args), stereo.fused_volume_plain(*args)
+            assert got.is_contiguous(memory_format=torch.channels_last_3d)
+            assert got.stride() == want.stride() and got.dtype == want.dtype
+            assert torch.equal(got.permute(0, 2, 3, 4, 1).view(ints[got.dtype]),
+                               want.permute(0, 2, 3, 4, 1).view(ints[want.dtype]))
 
 
 def test_inference_batch_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """``inference.main`` at its defaults (the estimator's default
     architecture on weights made from its seed) over pairs that ``train=collect`` wrote, on
     the card and on the CPU with the same point-sampling draws: K1 twice per
-    batch on the card, every bbox within 1e-3 m."""
+    batch on the card, and K2 twice (the default network warps bilinearly at
+    full resolution), bit for bit its twin on its own calls; every bbox
+    within 1e-3 m."""
     from rgbmanip_tpu_torch import train as T
     from rgbmanip_tpu_torch.models.pose_estimator import adapose
     from rgbmanip_tpu_torch.models.pose_estimator import inference
+    from rgbmanip_tpu_torch.ops import plane_sweep as k2
 
     data = str(tmp_path / "pairs")
     T.main(["dataset=cabinet_train", "task=open_cabinet_no_dr", "controller=collect_pose",
@@ -523,17 +922,23 @@ def test_inference_batch_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
             t = [torch.as_tensor(a, device=self.device) for a in (K, rgb1, mask1, ext1,
                                                                   rgb2, mask2, ext2)]
             out = self._estimate(*[x.float() if x.dtype != torch.bool else x for x in t], *u)
-            bboxes.append(out[0].cpu().numpy())
+            bboxes.append((out[0].cpu().numpy(), out[1].cpu().numpy()))
             return out
     monkeypatch.setattr(adapose, "AdaPoseEstimator", Drawn)
-    out = {}
+    out, calls = {}, []
     for d in ("cuda", "cpu"):
-        before = k1.crop_resize_normalize.launches
-        out[d] = inference.main(["--data_root", data, "--device", d])
-        assert k1.crop_resize_normalize.launches - before == (2 if d == "cuda" else 0)
+        before = (k1.crop_resize_normalize.launches, k2.warp_fuse.launches)
+        with k2_recorded(calls if d == "cuda" else []):
+            out[d] = inference.main(["--data_root", data, "--device", d])
+        launched = (k1.crop_resize_normalize.launches - before[0],
+                    k2.warp_fuse.launches - before[1])
+        assert launched == ((2, 2) if d == "cuda" else (0, 0))
     assert out["cuda"]["n"] == out["cpu"]["n"] == 2 and len(bboxes) == 2
-    assert (np.abs(bboxes[1]).max(axis=(1, 2)) < 8.0).all(), "a sentinel estimate"
-    np.testing.assert_allclose(bboxes[0], bboxes[1], rtol=0, atol=1e-3)
+    assert len(calls) == 2
+    assert_k2_equals_its_twin_on(calls)
+    assert (np.abs(bboxes[1][0]).max(axis=(1, 2)) < 8.0).all(), "a sentinel estimate"
+    np.testing.assert_array_equal(bboxes[0][1], bboxes[1][1])
+    np.testing.assert_allclose(bboxes[0][0], bboxes[1][0], rtol=0, atol=1e-3)
 
 
 def test_evaluate_on_card_matches_cpu(cuda, monkeypatch):
@@ -573,39 +978,60 @@ def test_evaluate_on_card_matches_cpu(cuda, monkeypatch):
         assert abs(card[k] - v) <= (0.1 if k.endswith("_deg") else 1e-3), (k, card[k], v)
 
 
+def test_evaluate_at_its_defaults_launches_k1_bf16_on_card(cuda):
+    """``evaluate.main`` at its defaults (bf16 and the card) with the mug
+    arguments of ``scripts/r5_chain.sh:22-26``, 2 rounds of 8: K1 four
+    times, every launch its bf16 entry point, and K5 never."""
+    from rgbmanip_tpu_torch.models.pose_estimator import evaluate as EV
+
+    def counts():
+        return (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16,
+                k5.row_gather.launches)
+    before = counts()
+    EV.main(["task=pick_mug", "dataset=mug_test", "task.num_envs=8",
+             "checkpoint=checkpoints/estimator_fast_mug_fine_r5.ckpt", "rounds=2",
+             "img_size=192", "backend=resnet18", "backbone_stride=32", "volume_scale=8",
+             "n_depth=16", "d_min=0.35", "d_interval=0.08", "warp_mode=nearest"])
+    assert tuple(a - b for a, b in zip(counts(), before)) == (4, 4, 0)
+
+
 # ------------------------------------------------------------ bf16 and the generations --
-FAST = "checkpoints/estimator_fast_cabinet_aug_r5.ckpt"
-
-
 def estimate_args(B, seed):
     """``_estimate``'s (K, rgb1, mask1, ext1, rgb2, mask2, ext2) of ``scene``."""
     K, rgb, mask, ext = scene(B, seed)
     return K, rgb[0], mask[0], ext[0], rgb[1], mask[1], ext[1]
 
 
-def test_bf16_estimate_on_card_matches_cpu(cuda):
-    """The flagship estimate in bf16 (``evaluate``'s default) at B=4: K1
-    twice, both its bf16 entry point; equal valid flags and the
-    world bbox within twice the CPU's own bf16-to-f32 gap of the CPU's bf16
-    estimate (both bf16 convolution libraries part in the last bits: see
+@pytest.mark.parametrize("name,over,B", [
+    ("adapose_cabinet_fast", {"checkpoint_path": FAST}, 4),
+    ("adapose_cabinet", {"load": False}, 2)], ids=["flagship", "paper"])
+def test_bf16_estimate_on_card_matches_cpu(cuda, name, over, B):
+    """The estimate in bf16 (``evaluate``'s default), the flagship's with
+    its checkpoint and the paper size's on seeded weights: K1 twice, both
+    its bf16 entry point, and K5 never; equal valid flags and the world bbox within twice
+    the CPU's own bf16-to-f32 gap of the CPU's bf16 estimate (both bf16
+    convolution libraries part in the last bits: see
     tests/test_torch_precision.py); and on the card at least half that gap
     (mean) from the card's own f32 estimate, as a card that ran f32 would
     not be."""
-    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"checkpoint_path": FAST})
-    args = estimate_args(4, seed=3)
+    cfg = load_group("pose_estimator", name, over)
+    size = int(cfg["img_size"])
+    args = estimate_args(B, seed=3)
     g = torch.Generator().manual_seed(1)
-    u = [torch.rand(4, S * S, generator=g) for _ in range(2)]
+    u = [torch.rand(B, size * size, generator=g) for _ in range(2)]
     out = {}
-    for name, d, dt in (("card", cuda, torch.bfloat16), ("card f32", cuda, torch.float32),
-                        ("cpu", torch.device("cpu"), torch.bfloat16),
-                        ("cpu f32", torch.device("cpu"), torch.float32)):
+    for run, d, dt in (("card", cuda, torch.bfloat16), ("card f32", cuda, torch.float32),
+                       ("cpu", torch.device("cpu"), torch.bfloat16),
+                       ("cpu f32", torch.device("cpu"), torch.float32)):
         est = AdaPoseEstimator(cfg, device=d, dtype=dt)
-        before = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16)
+        before = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16,
+                  k5.row_gather.launches)
         b, v, _ = est._estimate(*(torch.from_numpy(a).to(d) for a in args), *(x.to(d) for x in u))
-        after = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16)
-        if name == "card":
-            assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
-        out[name] = (b.cpu().numpy(), v.cpu().numpy())
+        after = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16,
+                 k5.row_gather.launches)
+        if run == "card":
+            assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 0)
+        out[run] = (b.cpu().numpy(), v.cpu().numpy())
     ok = out["cpu"][1]
     assert ok.any()
     np.testing.assert_array_equal(out["card"][1], ok)
@@ -614,52 +1040,98 @@ def test_bf16_estimate_on_card_matches_cpu(cuda):
     assert np.abs(out["card"][0] - out["card f32"][0])[ok].mean() >= 0.5 * gap.mean()
 
 
-def test_bf16_estimator_training_step_on_card_matches_cpu(cuda):
-    """One bf16 ``EstimatorTrainer`` step (``train_estimator.main``'s
-    default) from the committed head: each loss part within twice the CPU's
-    own bf16-to-f32 difference of it (at least 1e-2 relative: both bf16 runs
-    are rounded copies of the f32 one), and the card's summed bf16-to-f32
-    difference at least half the CPU's (a card that ran f32 would show
-    none); the gradient's cosine with the CPU's 0.9 or more; BatchNorm
-    running statistics within 1e-2 of their largest, parameters within two
-    learning rates and rounding."""
+def one_step(cfg, device, dtype, batch):
+    """One ``EstimatorTrainer`` step of a fresh estimator from ``cfg``'s
+    head: (loss parts, its (params, batch_stats) trees flattened, the step's
+    gradient flattened in parameter order on the host)."""
     from rgbmanip_tpu_torch.models.pose_estimator.converter import to_jax_params
     from rgbmanip_tpu_torch.models.pose_estimator.training import EstimatorTrainer
     from rgbmanip_tpu_torch.utils.checkpoint import flatten
 
-    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"checkpoint_path": FAST})
-    batch = estimator_batch(torch.device("cpu"))
-    out = {}
-    for name, d, dt in (("card", cuda, torch.bfloat16), ("card f32", cuda, torch.float32),
-                        ("cpu", torch.device("cpu"), torch.bfloat16),
-                        ("cpu f32", torch.device("cpu"), torch.float32)):
-        est = AdaPoseEstimator(cfg, device=d, dtype=dt)
-        trainer = EstimatorTrainer(est.model, lr=1e-4)
-        _, parts = trainer.step({k: v.to(d) for k, v in batch.items()})
-        grad = torch.cat([p.grad.reshape(-1).cpu() for p in est.model.parameters()
-                          if p.grad is not None])
-        out[name] = (parts, [flatten(t) for t in to_jax_params(est.model)], grad)
-    c16, c32, g16, g32 = (out[k][0] for k in ("cpu", "cpu f32", "card", "card f32"))
-    for k in c16:
-        bound = max(2 * abs(c16[k] - c32[k]) / abs(c32[k]), 1e-2)
-        assert abs(g16[k] - c16[k]) <= bound * abs(c16[k]), k
-    own = sum(abs(g16[k] - g32[k]) / abs(g32[k]) for k in c16)
-    assert own >= 0.5 * sum(abs(c16[k] - c32[k]) / abs(c32[k]) for k in c16)
-    ga, gb = out["card"][2], out["cpu"][2]
+    est = AdaPoseEstimator(cfg, device=device, dtype=dtype)
+    _, parts = EstimatorTrainer(est.model, lr=1e-4).step(
+        {k: v.to(device) for k, v in batch.items()})
+    grad = torch.cat([p.grad.reshape(-1).cpu() for p in est.model.parameters()
+                      if p.grad is not None])
+    return parts, [flatten(t) for t in to_jax_params(est.model)], grad
+
+
+def bf16_step_against_cpu(cfg, batch, k, cuda):
+    """One bf16 step from ``cfg``'s head on ``batch``, on the card and on the
+    CPU, each beside its f32 step, and a card step on crops one pixel off.
+    Returns, of the loss parts, the card's and the shifted step's largest
+    difference from the CPU's bf16 over its limit (``k`` times the CPU's own
+    bf16-to-f32 difference, at least 1e-2 relative: both bf16 runs are
+    rounded copies of the f32 one); the card's and the CPU's bf16-to-f32
+    differences summed over the parts; the gradients' cosine; the BatchNorm
+    running statistics' largest difference over their largest; and the
+    parameters' largest difference. ``np.max`` keeps a NaN, which fails any
+    bound."""
+    cpu = torch.device("cpu")
+    shifted = dict(batch, **{n: torch.roll(batch[n], 1, dims=2) for n in ("img1", "img2")})
+    g16, g32, off = (one_step(cfg, cuda, dt, b) for dt, b in (
+        (torch.bfloat16, batch), (torch.float32, batch), (torch.bfloat16, shifted)))
+    c16, c32 = (one_step(cfg, cpu, dt, batch) for dt in (torch.bfloat16, torch.float32))
+    gap = {n: abs(c16[0][n] - c32[0][n]) / abs(c32[0][n]) for n in c16[0]}
+    limit = {n: max(k * gap[n], 1e-2) for n in gap}
+
+    def over(run):
+        return float(np.max([abs(run[0][n] - c16[0][n]) / abs(c16[0][n]) / limit[n]
+                             for n in gap]))
+    (gp, gs), (cp, cs) = g16[1], c16[1]
+    ga, gb = g16[2], c16[2]
     assert ga.shape == gb.shape
-    assert float(ga @ gb / ga.norm() / gb.norm()) >= 0.9
-    (gp, gs), (cp, cs) = out["card"][1], out["cpu"][1]
-    for k in cs:
-        assert np.abs(gs[k] - cs[k]).max() <= 1e-2 * (np.abs(cs[k]).max() + 1e-6), k
-    assert max(float(np.abs(gp[k] - cp[k]).max()) for k in cp) <= 2.1e-4
+    return {"card": over(g16), "shifted": over(off),
+            "own": sum(abs(g16[0][n] - g32[0][n]) / abs(g32[0][n]) for n in gap),
+            "gap": sum(gap.values()), "cos": float(ga @ gb / ga.norm() / gb.norm()),
+            "stats": float(np.max([np.abs(gs[n] - cs[n]).max() / (np.abs(cs[n]).max() + 1e-6)
+                                   for n in cs])),
+            "params": float(np.max([np.abs(gp[n] - cp[n]).max() for n in cp]))}
+
+
+@pytest.mark.parametrize("n_envs", [2, 8])
+def test_bf16_estimator_training_step_on_card_matches_cpu(cuda, tmp_path, monkeypatch, n_envs):
+    """One bf16 ``EstimatorTrainer`` step (``train_estimator.main``'s
+    default), card against CPU (``bf16_step_against_cpu``): each loss part
+    within its limit, and a step on crops one pixel off outside it, which
+    the limit would not see otherwise; the card's summed bf16-to-f32
+    difference at least half the CPU's (a card that ran f32 would show
+    none); the gradient's cosine with the CPU's 0.9 or more; BatchNorm
+    running statistics within 1e-2 of their largest, parameters within two
+    learning rates and rounding, 2.1e-4. With 2 envs: one sampled batch from
+    the committed head, limit twice the CPU's gap. With 8 envs (the
+    production batch, BatchNorm over 8 envs): the head that three bf16 steps
+    of ``train_estimator.main`` trained, on its last batch: the whole batch
+    at twice the CPU's gap (loss parts and the control), and each 2-env
+    slice at 20 times it, where BatchNorm over two envs spreads the parts
+    further (both multiples from ``scripts/bf16_step_spread.py``'s readings
+    over six seeds, PERF.md), with every bound of the 2-env case over the
+    slices (the control: on at least one slice)."""
+    if n_envs == 2:
+        cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"checkpoint_path": FAST})
+        slices = [bf16_step_against_cpu(cfg, estimator_batch(torch.device("cpu")), 2, cuda)]
+    else:
+        est, head, taken = estimator_trainer_main(tmp_path, monkeypatch, "bf16", 3)
+        cfg = dict(est.cfg, load=True, checkpoint_path=head)
+        batch = {k: v.cpu() for k, v in taken[-1].items()}
+        whole = bf16_step_against_cpu(cfg, batch, 2, cuda)
+        assert whole["card"] <= 1 < whole["shifted"], whole
+        slices = [bf16_step_against_cpu(cfg, {k: v[lo:lo + 2] for k, v in batch.items()}, 20,
+                                        cuda) for lo in range(0, n_envs, 2)]
+    worst = {k: float(np.max([r[k] for r in slices])) for k in slices[0]}
+    assert worst["card"] <= 1 < worst["shifted"], slices
+    assert sum(r["own"] for r in slices) >= 0.5 * sum(r["gap"] for r in slices), slices
+    assert float(np.min([r["cos"] for r in slices])) >= 0.9, slices
+    assert worst["stats"] <= 1e-2 and worst["params"] <= 2.1e-4, slices
 
 
 @pytest.mark.parametrize("version,over", [("v3", {}), ("baseline", {}),
-                                          ("v5", {"volume_channels": 8})])
+                                          ("v5", {"volume_channels": 8}), ("v1", {}), ("v5", {})])
 def test_generation_on_card_matches_cpu(cuda, version, over):
     """A generation of ``make_estimator`` at B=4 on seeded weights (the
-    flagship's knobs, 192 px): the same RANSAC hypotheses and draws on both,
-    equal valid flags and the world bbox within 1e-3 m."""
+    flagship's knobs, 192 px): K1 twice on the card, its f32 entry point,
+    and K5 never; the same RANSAC hypotheses and draws on both, equal valid
+    flags and the world bbox within 1e-3 m."""
     from rgbmanip_tpu_torch.models.pose_estimator.adapose import make_estimator
     from rgbmanip_tpu_torch.ops.geometry import ransac_hypotheses
 
@@ -671,8 +1143,14 @@ def test_generation_on_card_matches_cpu(cuda, version, over):
     out = {}
     for d in (cuda, torch.device("cpu")):
         est = make_estimator(version, cfg, device=d)
+        before = (k1.crop_resize_normalize.launches, k1.crop_resize_normalize.launches_bf16,
+                  k5.row_gather.launches)
         b, v, _ = est._estimate(*(torch.from_numpy(a).to(d) for a in args),
                                 *(x.to(d) for x in u), idx.to(d))
+        launched = (k1.crop_resize_normalize.launches - before[0],
+                    k1.crop_resize_normalize.launches_bf16 - before[1],
+                    k5.row_gather.launches - before[2])
+        assert launched == ((2, 0, 0) if d.type == "cuda" else (0, 0, 0))
         out[d.type] = (b.cpu().numpy(), v.cpu().numpy())
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)
@@ -686,7 +1164,8 @@ def rl_manipulation_iteration(device, save_dir, init=None, actions=None):
     """One ``RLManipulation`` iteration (2 envs x 4 transitions) on
     ``device`` with the learn and policy blocks of ``controller/rl.yaml``;
     from ``init`` (a state dict) and by ``actions`` where given. Returns
-    (initial state dict, storage, final parameters, lr)."""
+    (initial state dict, storage, final parameters, lr, the update's
+    metrics)."""
     import json
 
     from rgbmanip_tpu_torch import train as T
@@ -714,7 +1193,7 @@ def rl_manipulation_iteration(device, save_dir, init=None, actions=None):
         storage = {k: getattr(ppo.storage, k).copy() for k in (
             "obs", "states", "actions", "rewards", "dones", "values", "logprobs", "mu")}
         params = {n: p.detach().cpu() for n, p in ppo.model.named_parameters()}
-        return start, storage, params, ppo.lr
+        return start, storage, params, ppo.lr, np.asarray(ppo.history[-1]["metrics"])
     finally:
         env.close()
 
@@ -723,12 +1202,14 @@ def test_rl_manipulation_iteration_on_card_matches_cpu(cuda, tmp_path):
     """``RLManipulation`` on the card, then on the CPU from the card's
     initial weights and by its actions: the rollout equal (the simulator is
     bit-equal), means within 1e-5, values and log-probabilities within
-    1e-4, the learning rate equal and the parameters after the update
-    within 2e-5 (actor) and 2e-4 (critic), as chip_smoke.py phase 12 holds
-    the camera scheduler's update."""
-    start, card, cp, clr = rl_manipulation_iteration(cuda, tmp_path / "card")
-    _, cpu, hp, hlr = rl_manipulation_iteration(torch.device("cpu"), tmp_path / "cpu",
-                                                init=start, actions=card["actions"])
+    1e-4, the update's losses within 1e-3 relative, the learning rate equal
+    and the parameters after the update within 2e-5 (actor) and 2e-4
+    (critic), as ``test_ppo_training_through_train_main_on_card`` holds the
+    camera scheduler's update."""
+    start, card, cp, clr, cm = rl_manipulation_iteration(cuda, tmp_path / "card")
+    _, cpu, hp, hlr, hm = rl_manipulation_iteration(torch.device("cpu"), tmp_path / "cpu",
+                                                    init=start, actions=card["actions"])
+    assert (np.abs(cm - hm) / np.maximum(np.abs(hm), 1e-6)).max() <= 1e-3
     for k in ("obs", "states", "actions", "rewards", "dones"):
         np.testing.assert_array_equal(cpu[k], card[k], err_msg=k)
     np.testing.assert_allclose(cpu["mu"], card["mu"], rtol=0, atol=1e-5)
@@ -739,6 +1220,64 @@ def test_rl_manipulation_iteration_on_card_matches_cpu(cuda, tmp_path):
         bound = 2e-4 if n.startswith("critic") else 2e-5
         assert (cp[n] - hp[n]).abs().max().item() <= bound, n
     assert any((cp[n] - start[n]).abs().max().item() > 0 for n in cp)
+
+
+def test_rl_manipulation_trains_and_plays_through_train_main_on_card(cuda, tmp_path,
+                                                                      monkeypatch):
+    """``manipulation.name=rl`` through ``train.main``: one
+    ``train.train_manipulation`` iteration (2 envs x 4 transitions) trains
+    the skill's policy on the card (obs 41, action 8 on ``open_cabinet``)
+    and writes ``model_1.ckpt``; then ``train=test`` plays it on the card.
+    No kernel of the port is on this path (a 41-input MLP): K1 never
+    launches."""
+    from rgbmanip_tpu_torch import train as T
+    from rgbmanip_tpu_torch.algo.ppo import PPO
+
+    runs, plays = [], []
+    run, play = PPO.run, PPO.play
+
+    def kept_run(self, *args, **kwargs):
+        runs.append(self)
+        return run(self, *args, **kwargs)
+
+    def kept_play(self, *args, **kwargs):
+        plays.append(self)
+        return play(self, *args, **kwargs)
+    monkeypatch.setattr(PPO, "run", kept_run)
+    monkeypatch.setattr(PPO, "play", kept_play)
+    rl = load_group("controller", "rl")
+    learn = dict(rl["learn"], num_transitions_per_env=4, save_dir=str(tmp_path / "ckpt"))
+    over = RL_MANIP + ["manipulation.name=rl", f"manipulation.learn={json.dumps(learn)}",
+                       f"manipulation.policy={json.dumps(rl['policy'])}", "device=cuda",
+                       f"train.save_dir={tmp_path}", f"train.log_dir={tmp_path}"]
+    counters = (k1.crop_resize_normalize, k1.crop_resize_normalize_clamp)
+    before = [f.launches for f in counters]
+    assert T.main(over + ["train=controller", "train.train_controller=false",
+                          "train.train_manipulation=true",
+                          "train.iterations_per_epoch=1"]) is None
+    played = T.main(over + ["train=test", "controller=gt_pose", "train.total_round=2"])
+    assert [f.launches for f in counters] == before
+    assert len(runs) == 1 and runs[0].device.type == "cuda"
+    assert {p.device.type for p in runs[0].model.parameters()} == {"cuda"}
+    assert (runs[0].obs_dim, runs[0].act_dim) == (41, 8)
+    assert (tmp_path / "ckpt" / "model_1.ckpt").exists()
+    assert plays and all(p.device.type == "cuda" for p in plays) and played["rounds"] == 2
+
+
+@pytest.mark.parametrize("kind,task", [("cabinet", "open_cabinet"), ("drawer", "open_drawer"),
+                                       ("pot", "open_pot"), ("mug", "pick_mug")])
+def test_a_urdf_fixture_gt_round_on_card_equals_cpu(cuda, tmp_path, kind, task):
+    """The gt stack, one round of 8 on a URDF fixture dataset
+    (``tests/fixtures/mobility_*``) through ``train.main``: the same result
+    (success and move distance) with ``device=cuda`` as with ``device=cpu``."""
+    from rgbmanip_tpu_torch import train as T
+
+    over = [f"dataset={kind}_urdf_fixture", f"task={task}", f"manipulation={task}",
+            "controller=gt_pose", "pose_estimator=ground_truth", "train=test",
+            "train.total_round=8", "task.num_envs=8", "seed=0",
+            f"train.save_dir={tmp_path}", f"train.log_dir={tmp_path}"]
+    res = {d: T.main(over + [f"device={d}"]) for d in ("cuda", "cpu")}
+    assert res["cuda"] == res["cpu"] and res["cuda"]["rounds"] == 8
 
 
 class FakeRobot:
@@ -785,6 +1324,7 @@ def test_realworld_estimate_on_card_matches_cpu(cuda):
     i1 = env.get_image()["camera0"]
     env.cam_move_to(Pose([0.45, 0.15, 0.55], [0.0, 1.0, 0.0, 0.0]).to_7d()[None])
     i2 = env.get_image()["camera0"]
+    assert i1["Color"].shape == (1, H, W, 3) and i1["Mask"].any() and i2["Mask"].any()
     cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"load": False})
     g = torch.Generator().manual_seed(4)
     u = [torch.rand(1, S * S, generator=g) for _ in range(2)]
@@ -794,14 +1334,19 @@ def test_realworld_estimate_on_card_matches_cpu(cuda):
         out = {}
         for d in (cuda, torch.device("cpu")):
             est = make_estimator("realworld", cfg, device=d)
-            before = k1.crop_resize_normalize.launches
+            assert est.model.realworld_pts
+            before = (k1.crop_resize_normalize.launches,
+                      k1.crop_resize_normalize_clamp.launches)
             b, v, _ = est._estimate(*(torch.from_numpy(np.asarray(a)).to(d) for a in args),
                                     *(x.to(d) for x in u))
-            assert k1.crop_resize_normalize.launches - before == (2 if d.type == "cuda" else 0)
+            launched = (k1.crop_resize_normalize.launches - before[0],
+                        k1.crop_resize_normalize_clamp.launches - before[1])
+            assert launched == ((2, 0) if d.type == "cuda" else (0, 0))
             out[d.type] = (b.cpu().numpy(), v.cpu().numpy())
         np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
         np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)
         assert (out["cuda"][0] >= 9.0).all() == sentinel
+        assert out["cuda"][1].all() != sentinel
 
 
 def sharded_estimator_step(rank, world):
@@ -865,30 +1410,70 @@ def test_batchnorm_group_path_at_world_1_matches_the_plain_step(cuda):
 
 def test_entry_forward_on_card_matches_cpu(cuda):
     """``graft_entry.entry()``'s bf16 forward (resnet34 at the JAX module's
-    defaults, B=2, 224 px) on the card against the CPU, per output: the
-    mean |card - CPU| of the bf16 forwards within twice the CPU's own mean
-    bf16-to-f32 difference, and the card's own bf16-to-f32 difference at
-    least half the CPU's (``chip_smoke.py`` phase 20's rule)."""
+    defaults, B=2, 224 px, bilinear warp) on the card against the CPU, per
+    output: the shapes, the mean |card - CPU| of the bf16 forwards within
+    twice the CPU's own mean bf16-to-f32 difference, and the card's own
+    bf16-to-f32 difference at least half the CPU's (the rule of
+    ``test_bf16_estimate_on_card_matches_cpu``, on each output's mean). On
+    the card the forward launches K2 twice, bit for bit its twin on its own
+    calls, and neither K1 nor K5 (the network takes cropped views)."""
     from rgbmanip_tpu_torch import graft_entry
+    from rgbmanip_tpu_torch.ops import plane_sweep as k2
 
-    def run(device):
+    def counts():
+        return (k1.crop_resize_normalize.launches, k1.crop_resize_normalize_clamp.launches,
+                k5.row_gather.launches, k2.warp_fuse.launches)
+
+    def run(device, calls):
         forward, args = graft_entry.entry(device=device)
         net = graft_entry.flagship_net(torch.float32, device)
         with torch.no_grad():
             out32 = net(*args)
-        out16 = forward(*args)
+        before = counts()
+        with k2_recorded(calls):
+            out16 = forward(*args)
         return ([o.float().cpu() for o in out16],
                 [out32[n].float().cpu() for n in ("view1_nocs", "view1_depth", "view1_r")],
-                out16)
+                out16, tuple(a - b for a, b in zip(counts(), before)))
 
-    card16, card32, raw = run(cuda)
+    calls = []
+    card16, card32, raw, launched = run(cuda, calls)
+    assert launched == (0, 0, 0, 2)
+    assert_k2_equals_its_twin_on(calls)
     assert [o.dtype for o in raw] == [torch.bfloat16, torch.float32, torch.bfloat16]
     assert all(o.is_cuda and torch.isfinite(o.float()).all() for o in raw)
-    cpu16, cpu32, _ = run(torch.device("cpu"))
+    B, _, N, _ = graft_entry.ENTRY_SHAPE
+    assert [tuple(o.shape) for o in raw] == [(B, N, 3), (B, N), (B, 3, 3)]
+    cpu16, cpu32, _, _ = run(torch.device("cpu"), [])
     for c16, c32, p16, p32 in zip(card16, card32, cpu16, cpu32):
         gap = float((p16 - p32).abs().mean())
         assert float((c16 - p16).abs().mean()) <= 2 * gap
         assert float((c16 - c32).abs().mean()) >= 0.5 * gap
+
+
+def test_dryrun_multichip_on_every_card_matches_the_unsharded_cpu_steps(cuda):
+    """``dryrun_multichip(torch.cuda.device_count())``: one rank per card
+    through NCCL, a (dp, tp) mesh over every card; its estimator loss and
+    parts, the production-shape loss where tp > 1, and the PPO update's
+    metrics within 1e-4 relative of the same steps run unsharded on the CPU
+    (f32, TF32 off). This process launches neither K1 nor K5."""
+    from rgbmanip_tpu_torch import graft_entry
+
+    def counts():
+        return (k1.crop_resize_normalize.launches, k1.crop_resize_normalize_clamp.launches,
+                k5.row_gather.launches)
+    n = torch.cuda.device_count()
+    before = counts()
+    out = graft_entry.dryrun_multichip(n)
+    assert counts() == before
+    assert out["dp"] * out["tp"] == n
+    cpu = graft_entry.dryrun_steps(out["dp"], out["tp"], device="cpu")
+    keys = sorted(cpu["estimator_parts"])
+    got = ([out["estimator_loss"]] + [out["estimator_parts"][k] for k in keys]
+           + list(out["ppo_metrics"]) + [out.get("production_loss", 1.0)])
+    ref = ([cpu["estimator_loss"]] + [cpu["estimator_parts"][k] for k in keys]
+           + list(cpu["ppo_metrics"]) + [cpu.get("production_loss", 1.0)])
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, ref)), (got, ref)
 
 
 def test_bf16_conv3d_weight_gradient_on_the_cpu_stays_finite():
@@ -914,38 +1499,79 @@ def test_bf16_conv3d_weight_gradient_on_the_cpu_stays_finite():
 
 
 def test_a_gt_sweep_row_on_card_equals_cpu(cuda, monkeypatch, tmp_path):
-    """``eval_sweep``'s gt stack (no network) gives the same row with
-    ``device=cuda`` as with ``device=cpu``; the committed JSON is not read
-    or written (the sweep writes ``docs/sweep_torch_*`` under the working
-    directory)."""
+    """``eval_sweep``'s gt stack (no network) over all 16 rows at one round
+    of 8 gives the same rows with ``device=cuda`` as with ``device=cpu``,
+    and launches no K1; the committed JSON is not read or written (the
+    sweep writes ``docs/sweep_torch_*`` under the working directory)."""
     from rgbmanip_tpu_torch.scripts import eval_sweep
 
-    rows = [("open_drawer", "open_drawer", [("test", "drawer_test")])]
-    monkeypatch.setattr(eval_sweep, "ROWS", rows)
     out = {}
+    before = k1.crop_resize_normalize.launches
     for name in ("cuda", "cpu"):
         (tmp_path / name).mkdir()
         monkeypatch.chdir(tmp_path / name)
         out[name] = eval_sweep.main(["8", "gt_pose", "ground_truth", f"device={name}"])
         assert os.path.exists("docs/sweep_torch_gt_pose_ground_truth.json")
+    assert k1.crop_resize_normalize.launches == before
     assert out["cuda"]["results"] == out["cpu"]["results"]
+    assert len(out["cuda"]["results"]) == 16
     assert out["cuda"]["results"]["open_drawer/test"]["episodes"] == 8
 
 
-def test_a_learned_sweep_row_launches_k1(cuda, monkeypatch, tmp_path):
-    """A heuristic + AdaPose row of the sweep (pot) runs its estimate on the
-    card through K1: one estimate of the batch, K1 twice."""
+# one heuristic + AdaPose row of the sweep per estimator family, with its
+# committed estimator (scripts/eval_sweep.py's rows)
+SWEEP_FAMILIES = {
+    "cabinet": ("open_cabinet", "open_cabinet", "cabinet_test",
+                [f"pose_estimator.checkpoint_path={FAST}"]),
+    "drawer": ("open_drawer", "open_drawer", "drawer_test", []),
+    "pot": ("open_pot", "open_pot", "pot_test", []),
+    "mug": ("pick_mug", "pick_mug", "mug_test", []),
+}
+
+
+@pytest.mark.parametrize("family", list(SWEEP_FAMILIES))
+def test_a_learned_sweep_row_launches_k1(cuda, monkeypatch, tmp_path, family):
+    """A heuristic + AdaPose row of the sweep for each estimator family runs
+    its estimate on the card through K1: one estimate of the batch, K1
+    twice, no error row."""
     from rgbmanip_tpu_torch.scripts import eval_sweep
     from rgbmanip_tpu_torch.utils.logger import get_logger
 
-    rows = [("open_pot", "open_pot", [("test", "pot_test")])]
+    task, manip, dataset, passthru = SWEEP_FAMILIES[family]
     monkeypatch.chdir(tmp_path)
-    k1.crop_resize_normalize.launches = 0
-    res = eval_sweep.sweep(rows, 8, "heuristic_pose", "adapose_pot_fast", ["device=cuda"],
-                           get_logger())
-    assert "error" not in res["open_pot/test"], res
-    assert res["open_pot/test"]["episodes"] == 8
-    assert k1.crop_resize_normalize.launches == 2
+    before = k1.crop_resize_normalize.launches
+    res = eval_sweep.sweep([(task, manip, [("test", dataset)])], 8, "heuristic_pose",
+                           f"adapose_{family}_fast", passthru + ["device=cuda"], get_logger())
+    row = res[f"{task}/test"]
+    assert "error" not in row, row
+    assert row["episodes"] == 8
+    assert k1.crop_resize_normalize.launches - before == 2
+
+
+def test_diag_flagship_launches_k1_twice_an_estimate_on_card(cuda, monkeypatch):
+    """``diag_flagship`` at one round of 8 with the flagship's estimator
+    (``EST_CKPT``, as ``scripts/r5_stageD.sh:18``): K1 twice per estimate
+    it records of the RL and the heuristic run, every recorded row finite."""
+    from rgbmanip_tpu_torch.scripts import diag_flagship
+
+    monkeypatch.setenv("EST_CKPT", FAST)
+    before = k1.crop_resize_normalize.launches
+    out = diag_flagship.main([POLICY, "1", "8", "device=cuda"])
+    rows = out["rl"].rows + out["heuristic"].rows
+    n_est = len(rows) // 8
+    assert n_est > 0 and k1.crop_resize_normalize.launches - before == 2 * n_est
+    assert np.isfinite(np.array(rows)).all()
+
+
+def test_trace_mug_learned_launches_k1_twice_a_round_on_card(cuda):
+    """``trace_mug_learned`` at one round of 8 on ``mug_test``: 8 finite
+    rows, K1 twice (the round's one estimate)."""
+    from rgbmanip_tpu_torch.scripts import trace_mug_learned
+
+    before = k1.crop_resize_normalize.launches
+    rows = trace_mug_learned.main(["mug_test", "1", "device=cuda"])
+    assert len(rows) == 8 and np.isfinite(np.array(rows, np.float64)).all()
+    assert k1.crop_resize_normalize.launches - before == 2
 
 
 # the bench's knobs on the flagship head (the same architecture as the
@@ -958,20 +1584,18 @@ def test_bench_estimate_on_card_matches_cpu(cuda, raised):
     """``rgbmanip_tpu_torch.bench``'s estimate at B=8 in f32: its inputs, made
     on the card, and the same point draws on the card and on the CPU, bbox
     within 1e-3 m and equal valid flags, on the bench's own views and with
-    the second camera raised 1 mm (``chip_smoke.bench_card_against_cpu``,
-    which phase 22 runs). On the own views the cost volume's first and last
-    rows sit on a rounding tie at the source's border, which the CPU's run
-    takes from the card's after checking that no other ray's decision
-    differs; raised, no ray is on a tie."""
-    import sys
+    the second camera raised 1 mm (``torch_card_cpu.bench_card_against_cpu``).
+    On the own views the cost volume's first and last rows sit on a rounding
+    tie at the source's border, which the CPU's run takes from the card's
+    after checking that no other ray's decision differs; raised, no ray is
+    on a tie."""
+    from torch_card_cpu import bench_card_against_cpu
 
-    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import chip_smoke
     from rgbmanip_tpu_torch import bench
 
     ests = {k: bench.estimator(BENCH_HEAD, torch.float32, d)
             for k, d in (("card", cuda), ("cpu", torch.device("cpu")))}
-    bdiff, n_valid, taken = chip_smoke.bench_card_against_cpu(np, torch, ests, 8, raised)
+    bdiff, n_valid, taken = bench_card_against_cpu(ests, 8, raised)
     assert bdiff <= 1e-3 and 0 <= n_valid <= 8
     if raised:
         assert taken == 0
@@ -994,6 +1618,62 @@ def test_bench_ppo_update_is_finite_on_the_card(cuda):
     assert metrics.shape == (5,) and torch.isfinite(metrics).all()
     assert all(torch.isfinite(p).all() for p in ppo.model.parameters())
     assert len(ppo.update_lrs) == 32
+
+
+# the timing scripts at a short size, each in its own process; the bench on
+# the flagship head (``BENCH_HEAD``)
+TIMING_SCRIPTS = {
+    "bench": ["rgbmanip_tpu_torch.bench", "--batch", "8", "64", "--iters", "2", "--reps",
+              "1", "--checkpoint", BENCH_HEAD],
+    "bench_estimate": ["rgbmanip_tpu_torch.scripts.bench_estimate", "fast", "--batch", "16"],
+    "bench_ppo_update": ["rgbmanip_tpu_torch.scripts.bench_ppo_update", "--iters", "2",
+                         "--reps", "1"],
+    "bench_ppo_iter": ["rgbmanip_tpu_torch.scripts.bench_ppo_iter", "8", "1"],
+    "bench_sim_scaling": ["rgbmanip_tpu_torch.scripts.bench_sim_scaling", "--envs", "1",
+                          "8", "--threads", "--cycles", "1"],
+}
+
+
+def numbers(v, at=""):
+    """Every number of a parsed JSON object outside its lists, by its place
+    ("<line> <key> ...")."""
+    if isinstance(v, dict):
+        for k, x in v.items():
+            yield from numbers(x, f"{at} {k}")
+    elif isinstance(v, (int, float)) and not isinstance(v, bool):
+        yield at.strip(), v
+
+
+@pytest.mark.parametrize("name", list(TIMING_SCRIPTS))
+def test_a_timing_script_runs_on_card(cuda, name):
+    """A timing script of the port at a short size in its own process (its
+    times then check the script, not the card): it exits 0 and every number
+    of the JSON lines it prints is finite and positive (a launch count may
+    be 0). The bench's last line is its headline, named after the card,
+    and each of its rows launched K1 twice an estimate, its bf16 entry
+    point in the bf16 rows; ``bench_sim_scaling`` prints a row for each
+    number of envs."""
+    import math
+
+    res = subprocess.run([sys.executable, "-m", *TIMING_SCRIPTS[name]], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+    rows = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+    assert rows, res.stdout[-2000:]
+    bad = {k: v for i, r in enumerate(rows) for k, v in numbers(r, str(i))
+           if not (math.isfinite(v) and (v > 0 or k.split()[-1].startswith("launches")
+                                         and v == 0))}
+    assert not bad, bad
+    if name == "bench":
+        last = rows[-1]
+        assert last["metric"] == "pose_estimation_fps" and last["vs_baseline"] is None
+        best = max(rows[:2], key=lambda r: r["frames_per_s"])   # the bf16 headline batches
+        assert f"(B={best['B']}, {torch.cuda.get_device_name(0)}, bf16," in last["unit"]
+        for r in rows[:-1]:
+            assert r["launches"] == 2 * r["estimates"], r
+            assert r["launches_bf16"] == (r["launches"] if r["dtype"] == "bfloat16" else 0), r
+    if name == "bench_sim_scaling":
+        assert [(r["n_envs"], r["n_threads"]) for r in rows] == [(1, 1), (8, 1)]
 
 
 def test_spans_split_the_bf16_estimate_on_card(cuda, monkeypatch):
@@ -1262,6 +1942,7 @@ def test_parity_unet_channels_last_agrees_with_ncdhw_on_card(cuda, monkeypatch):
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     net, vol = parity_unet(torch.bfloat16, cuda)
+    assert stereo.unet_input(vol).data_ptr() == vol.data_ptr()     # no copy of K2's volume
     seen = {}
     with torch.inference_mode():
         ncdhw = net(vol.contiguous()).float()

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of rgbmanip_tpu_torch (and
-chip_smoke.py's own imports) pulls in neither JAX, flax, optax nor the JAX
-package; entry points default to the card."""
+chip_smoke.py's and the card tests' helper module's own imports) pulls in
+neither JAX, flax, optax nor the JAX package; entry points default to the
+card."""
 
 import importlib
 import json
@@ -52,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_sources_import_no_jax():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_card_cpu.py")]
     for root, _, names in os.walk(rgbmanip_tpu_torch.PACKAGE_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if IMPORT_RE.search(open(f).read())]
