@@ -16,9 +16,10 @@ the arguments of every call to a kernel's wrapper recorded:
     f32 (its configurations name no dtype): K1 twice;
   - the three cells at their own batch and dtype (``fast.estimate_b128``,
     ``paper.estimate_b16``, ``parity.estimate_b16``, bf16): K1's bf16 entry
-    point twice an estimate, K2 twice in parity and never in the others;
+    point twice an estimate, K2 twice in parity and never in the others, K7
+    (the U-Net's ``prob`` convolution) twice in each;
   - the parity network in f32 at B=8, the volume of the estimator's
-    inference harness, (8, 32, 24, 224, 224): K1 twice, K2 twice;
+    inference harness, (8, 32, 24, 224, 224): K1 twice, K2 twice, K7 never;
   - the estimator trainer's crop (``SimViewSampler._prepare``:
     ``prepare_model_input(..., border="clamp")`` at 192 px, 1024 points) of
     the flagship run's views: K1's clamping mode twice;
@@ -29,15 +30,19 @@ Then each wrapper again on every recorded call, against its plain version:
 K1 in f32 and both border modes bit for bit, its bf16 entry points bit for
 bit ``plain(..., out_dtype=bf16)``, K2 bit for bit
 ``stereo.fused_volume_plain`` in the channels-last layout both write, K5 bit
-for bit; K1 also on a reversed window (an empty mask) and a sweep of
-centred, edge and corner windows, K5 also in f32 and at (1, 640, 8, 2),
-where its index arithmetic wraps around int32. Last, each kernel's device
-time a launch (torch.profiler) on the first run that launched it, beside its
+for bit; K7, which sums in another order than its plain version (cuDNN's
+convolution), against the f64-accumulated convolution to the card tests'
+tolerance (``prob_conv.reference_gaps``); K1 also on a reversed window (an
+empty mask) and a sweep of centred, edge and corner windows, K5 also in f32
+and at (1, 640, 8, 2), where its index arithmetic wraps around int32. Last,
+each kernel's device time a launch (torch.profiler) on the first run that
+launched it (K7 on the parity and the paper cells' calls), beside its
 bound (its least bytes and operations, ``portbench/counts``, over the card's
 peaks, ``portbench/counts/peaks.py``), its plain version's and one library
 call's: ``F.grid_sample`` of the same coordinates for K1 (border padding) and
 K2 (zero padding, one tap set a depth, no fusing add), ``index_select`` for
-K5.
+K5, and for K7 ``F.conv3d`` in bf16 on the channels-last volume (cuDNN),
+which is also its plain version.
 
 Any failure exits 1. The last three lines are the card's name and power
 limit, the kernels' JSON line and ``{"ok": true, "device": {...}}``. Without
@@ -74,6 +79,9 @@ K1_SRC = ("rgbmanip_tpu_torch/csrc/crop_resize_normalize.cu",
 K2_SRC = ("rgbmanip_tpu_torch/csrc/plane_sweep_fuse.cu",
           "rgbmanip_tpu/models/pose_estimator/nets/stereo.py:38")
 K5_SRC = ("rgbmanip_tpu_torch/csrc/row_gather.cu", "scripts/try_pallas_gather.py:43")
+K7_SRC = ("rgbmanip_tpu_torch/csrc/prob_conv3d.cu", "none")
+# K7's rows: the runs whose calls it is timed on
+K7_TIMED_ON = ("parity.estimate_b16", "paper.estimate_b16")
 ROWS = (("crop_resize_normalize", "renormalise", False, K1_SRC),
         ("crop_resize_normalize_bf16", "renormalise", True, K1_SRC),
         ("crop_resize_normalize_clamp", "clamp", False, K1_SRC),
@@ -120,14 +128,15 @@ def device_times(torch, fn, n=20, attempts=10):
 def recorded(calls):
     """Within: every call to a kernel's wrapper, as the port's modules call
     it, appended to ``calls[kind]`` as (args, kwargs): "renormalise" and
-    "clamp" (K1's border modes), "k2", "k5"."""
+    "clamp" (K1's border modes), "k2", "k5", "k7"."""
     from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
-    from rgbmanip_tpu_torch.ops import preprocess
+    from rgbmanip_tpu_torch.ops import preprocess, prob_conv
     from rgbmanip_tpu_torch.scripts import try_gather
 
     hooks = ((preprocess, "crop_resize_normalize", "renormalise"),
              (preprocess, "crop_resize_normalize_clamp", "clamp"),
-             (stereo, "fused_volume", "k2"), (try_gather, "row_gather", "k5"))
+             (stereo, "fused_volume", "k2"), (try_gather, "row_gather", "k5"),
+             (prob_conv, "prob_conv3d", "k7"))
     origs = [getattr(m, name) for m, name, _ in hooks]
     for (m, name, kind), orig in zip(hooks, origs):
         def rec(*args, _orig=orig, _kind=kind, **kw):
@@ -141,9 +150,11 @@ def recorded(calls):
             setattr(m, name, orig)
 
 
-def launches(k2_bf16=False):
+def launches(calls, k2_bf16=False):
     """Every launch counter, by row of the kernels line. K2 counts its
-    launches in both dtypes together: they go to the row of ``k2_bf16``."""
+    launches in both dtypes together: they go to the row of ``k2_bf16``. K7
+    keeps no counter outside a span: its launches are its calls recorded in
+    ``calls`` (its wrapper launches once a call, or raises)."""
     from rgbmanip_tpu_torch.ops import crop_resize as k1
     from rgbmanip_tpu_torch.ops import plane_sweep as k2
     from rgbmanip_tpu_torch.ops import row_gather as k5
@@ -153,7 +164,7 @@ def launches(k2_bf16=False):
          "crop_resize_normalize_clamp": c.launches - c.launches_bf16,
          "crop_resize_normalize_clamp_bf16": c.launches_bf16,
          "plane_sweep_fuse": 0, "plane_sweep_fuse_bf16": 0,
-         "row_gather": k5.row_gather.launches}
+         "row_gather": k5.row_gather.launches, "prob_conv3d_bf16": len(calls.get("k7", ()))}
     n["plane_sweep_fuse_bf16" if k2_bf16 else "plane_sweep_fuse"] = k2.warp_fuse.launches
     return n
 
@@ -191,11 +202,12 @@ def path_runs(torch, dev):
         with recorded(calls):
             full = D.call(est, x)
         B, bf16 = int(wl["batch"]), wl["dtype"] == "bfloat16"
-        n = launches(k2_bf16=bf16)
+        n = launches(calls, k2_bf16=bf16)
         k2 = 2 if cfg["warp_mode"] == "bilinear" else 0
         want = {k: 0 for k in n}
         want["crop_resize_normalize_bf16" if bf16 else "crop_resize_normalize"] = 2
         want["plane_sweep_fuse_bf16" if bf16 else "plane_sweep_fuse"] = k2
+        want["prob_conv3d_bf16"] = 2 if bf16 else 0
         check(n == want, f"{label}: launches {n}, the path launches {want}")
         check(full["bbox"].shape == (B, 8, 3) and bool(np.isfinite(full["bbox"]).all()),
               f"{label}: bbox {full['bbox'].shape}, not all finite")
@@ -216,7 +228,7 @@ def path_runs(torch, dev):
         for v in ("1", "2"):
             prepare_model_input(crop_views[f"rgb{v}"], crop_views[f"mask{v}"],
                                 crop_views["K"], g, S, n_pts, border="clamp")
-    n = launches()
+    n = launches(calls)
     check(n["crop_resize_normalize_clamp"] == 2 and sum(n.values()) == 2,
           f"the trainer's crop: launches {n}; it launches the clamping mode once a view")
     say("path", f"the estimator trainer's crop of the flagship run's views, {S} px: "
@@ -227,7 +239,7 @@ def path_runs(torch, dev):
     zero_launches()
     with recorded(calls):
         probe = try_gather.run(device=dev)
-    n = launches()
+    n = launches(calls)
     check(probe["exact"] and n["row_gather"] > 0 and sum(n.values()) == n["row_gather"],
           f"the probe did not go through K5 alone: {n}")
     say("path", f"{try_gather.describe(probe)} | launches {n['row_gather']}")
@@ -285,9 +297,24 @@ def k2_equal(torch, args, tag):
               f"K2 {tag}: differs from the eager warp at {tuple(got.shape)} {got.dtype}")
 
 
+def k7_held(torch, args, tag):
+    """K7 on one recorded call against the f64-accumulated convolution, as
+    the card tests hold it."""
+    from rgbmanip_tpu_torch.ops import prob_conv
+
+    with torch.inference_mode():
+        out = prob_conv.prob_conv3d(*args)
+        torch.cuda.synchronize()
+        gaps = prob_conv.reference_gaps(out, *args)
+    check(gaps["held"], f"K7 {tag}: not held to the f64 reference at "
+          f"{tuple(args[0].shape)}: {gaps}")
+    return gaps
+
+
 def against_plain(torch, dev, runs):
-    """Every recorded call of every run against its plain version, then the
-    swept and reversed windows and K5's other shapes."""
+    """Every recorded call of every run against its plain version (K7 against
+    the f64 reference), then the swept and reversed windows and K5's other
+    shapes."""
     from rgbmanip_tpu_torch.ops import crop_resize as k1
     from rgbmanip_tpu_torch.ops import row_gather as k5
 
@@ -300,9 +327,12 @@ def against_plain(torch, dev, runs):
         for i, (args, _) in enumerate(calls.get("k5", [])):
             got, want = k5.row_gather(*args), k5.row_gather_plain(*args)
             check(torch.equal(got, want), f"K5 {label} call {i}: differs from plain")
+        gaps = [k7_held(torch, args, f"{label} call {i}")
+                for i, (args, _) in enumerate(calls.get("k7", []))]
         held = {k: len(v) for k, v in calls.items()}
         say("plain", f"{label}: every recorded call equals its plain version bit for bit "
-            f"(K1 in f32 and bf16): {held}")
+            f"(K1 in f32 and bf16), K7's held to the f64 reference: {held}"
+            + (f"; K7 {gaps}" if gaps else ""))
     S = TRAIN_CROP[0]
     rmin, cmin, inv, ratio = swept_windows(torch, dev, S)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -409,25 +439,53 @@ def k5_row(torch, args):
     return calls, bound_bytes / HBM_BYTES_PER_S * 1e3, "bytes", [B, S, C, D]
 
 
+def k7_row(torch, args):
+    """The same for K7 on one recorded call. Its bound: the volume read once
+    and the output written once."""
+    import torch.nn.functional as F
+
+    from portbench.counts.peaks import HBM_BYTES_PER_S
+    from rgbmanip_tpu_torch.ops import prob_conv
+
+    x, w = args
+    B, C, D, H, W = x.shape
+    wb = w.to(torch.bfloat16)
+    calls = {"kernel": lambda: prob_conv.prob_conv3d(x, w),
+             "plain": lambda: prob_conv.prob_conv3d_plain(x, w),
+             "library": lambda: F.conv3d(x, wb, None, 1, 1)}
+    n = B * D * H * W
+    bound = n * (C + 1) * x.element_size() / HBM_BYTES_PER_S * 1e3
+    return calls, bound, "bytes", [B, C, D, H, W]
+
+
 KERNEL_NAMES = {"renormalise": "crop_resize_normalize_kernel",
                 "clamp": "crop_resize_normalize_kernel", "k2": "plane_sweep_fuse",
-                "k5": "row_gather_kernel"}
+                "k5": "row_gather_kernel", "k7": "prob_conv3d_kernel"}
 
 
 def timings(torch, runs, card):
-    """One entry of the kernels line per row of ``ROWS``."""
+    """One entry of the kernels line per row of ``ROWS``, then K7's on each
+    run of ``K7_TIMED_ON``."""
     with torch.inference_mode():
-        return [row_timing(torch, runs, card, *row) for row in ROWS]
+        rows = [row_timing(torch, runs, card, *row) for row in ROWS]
+        return rows + [row_timing(torch, runs, card, "prob_conv3d_bf16", "k7", True, K7_SRC,
+                                  label) for label in K7_TIMED_ON]
 
 
-def row_timing(torch, runs, card, name, kind, bf16, src):
+def row_timing(torch, runs, card, name, kind, bf16, src, timed_on=None):
     total = sum(n[name] for _, n, _ in runs)
-    # the first run that launched this row, else (the clamping bf16 entry
-    # point, which no path runs) the first that launched its f32 twin
-    pick = [r for r in runs if r[1][name]] or [r for r in runs if r[2].get(kind)]
+    # the run ``timed_on``, else the first run that launched this row, else
+    # (the clamping bf16 entry point, which no path runs) the first that
+    # launched its f32 twin
+    pick = ([r for r in runs if r[0] == timed_on] or [r for r in runs if r[1][name]]
+            or [r for r in runs if r[2].get(kind)])
     label, _, calls = pick[0]
-    per = 1
-    if kind == "k2":
+    per, err = 1, 0.0
+    if kind == "k7":
+        fns, bound, bound_by, shape = k7_row(torch, calls["k7"][0][0])
+        # against the f64 reference, where the other rows equal their plain version
+        err = k7_held(torch, calls["k7"][0][0], label)["max_err"]
+    elif kind == "k2":
         own = [c for c in calls["k2"]
                if (c[0][0].dtype == torch.bfloat16) == bf16]
         fns, bound, bound_by, shape, per = k2_row(torch, own)
@@ -436,7 +494,8 @@ def row_timing(torch, runs, card, name, kind, bf16, src):
     else:
         args, kw = calls[kind][0]
         fns, bound, bound_by, shape = k1_row(torch, kind, bf16, args, kw)
-    times = {k: device_times(torch, fn, n=5 if kind == "k2" else 20) for k, fn in fns.items()}
+    times = {k: device_times(torch, fn, n=5 if kind in ("k2", "k7") else 20)
+             for k, fn in fns.items()}
     kern = {k: v for k, v in times["kernel"].items() if KERNEL_NAMES[kind] in k}
     check(len(kern) == 1, f"{name}: the profiler did not see the kernel: {sorted(times['kernel'])}")
     ms = {"kernel": sum(kern.values()) / per, "plain": sum(times["plain"].values()) / per,
@@ -445,7 +504,7 @@ def row_timing(torch, runs, card, name, kind, bf16, src):
         f"launch ({bound / ms['kernel'] * 100:.1f}% of the {bound:.4f} ms {bound_by} bound), "
         f"plain {ms['plain']:.4f} ms, library {ms['library']:.4f} ms")
     return {"name": name, "route": "cuda", "source": src[0], "replaces": src[1],
-            "launches": total, "max_abs_err": 0.0, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "launches": total, "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": bound, "bound_by": bound_by, "library_ms": ms["library"],
             "shape": shape, "timed_on": label}
 
@@ -472,7 +531,7 @@ def run():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | TF32 off")
 
     # 2. build
-    kernels = ["crop_resize_normalize", "row_gather", "plane_sweep_fuse"]
+    kernels = ["crop_resize_normalize", "row_gather", "plane_sweep_fuse", "prob_conv3d"]
     t0 = time.perf_counter()
     _build.build_all(kernels)
     say("build", f"{len(kernels)} kernels built with nvcc for sm_90a in "

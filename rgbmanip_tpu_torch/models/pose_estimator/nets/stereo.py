@@ -37,8 +37,9 @@ warp writes, so that its convolutions reach cuDNN's NDHWC tensor-core
 engines with no layout conversion; elsewhere contiguous NCDHW
 (``unet_input``). Where no gradient is recorded on the card, the bilinear
 warp and its fusing add run as K2 (``ops/plane_sweep.py``, bit for bit the
-eager warp), which writes each fused volume straight into that layout. The
-JAX package's banded
+eager warp), which writes each fused volume straight into that layout, and
+in bf16 the U-Net's last layer, ``prob``, runs as K7 (``ops/prob_conv.py``,
+the same f32 sum in another order). The JAX package's banded
 ``CostRegNet2D`` is a TPU execution plan of the same math and parameter tree;
 this module ports ``CostRegNet``.
 """
@@ -52,7 +53,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ....ops import plane_sweep
+from ....ops import plane_sweep, prob_conv
 from ....ops.gather import flat_gather, point_sample
 from ....utils.logger import count, span
 from .layers import Conv2d, Conv3d, ConvTranspose3d, Linear
@@ -351,10 +352,33 @@ def unet_input(vol):
     return vol.contiguous()
 
 
+class ProbConv3d(Conv3d):
+    """``CostRegNet.prob``, the U-Net's last layer: the one-output-channel
+    ``Conv3d(base, 1, 3, padding=1, bias=False)``. Where ``k7_applies`` it
+    runs as K7 (``ops/prob_conv.py``), elsewhere as ``Conv3d``."""
+
+    def k7_applies(self, x) -> bool:
+        """Whether this forward runs as K7: x on the card in bf16 in the
+        channels-last-3d layout, the layer computing in bf16, no gradient
+        recorded, and the layer K7's 8 -> 1, k3, s1, p1 convolution without
+        bias. Elsewhere (the CPU, training, f32 and NCDHW on the card) the
+        ``Conv3d`` forward runs, K7's plain version."""
+        return (x.is_cuda and x.dtype == self.compute_dtype == torch.bfloat16
+                and not torch.is_grad_enabled()
+                and x.is_contiguous(memory_format=torch.channels_last_3d)
+                and prob_conv.takes(self))
+
+    def forward(self, x):
+        if self.k7_applies(x):
+            return prob_conv.prob_conv3d(x, self.weight)
+        return super().forward(x)
+
+
 class CostRegNet(nn.Module):
     """3-D U-Net over the fused volume (B, C, D, H, W) -> (B, 1, D, H, W).
     Every op keeps its input's memory format (``unet_input``): the
-    convolutions, ``FlaxBatchNorm3d``, the ReLUs and the skip adds."""
+    convolutions, ``FlaxBatchNorm3d``, the ReLUs and the skip adds. On the
+    card in bf16 with no gradient recorded, ``prob`` runs as K7."""
 
     def __init__(self, in_ch: int, base: int = 8, dtype=torch.float32):
         super().__init__()
@@ -369,7 +393,7 @@ class CostRegNet(nn.Module):
         self.conv7 = DeconvBnRelu3d(8 * b, 4 * b, dtype=dtype)
         self.conv9 = DeconvBnRelu3d(4 * b, 2 * b, dtype=dtype)
         self.conv11 = DeconvBnRelu3d(2 * b, b, dtype=dtype)
-        self.prob = Conv3d(b, 1, 3, padding=1, bias=False, dtype=dtype)
+        self.prob = ProbConv3d(b, 1, 3, padding=1, bias=False, dtype=dtype)
 
     def forward(self, x):
         c0 = self.conv0(x)

@@ -1930,10 +1930,11 @@ def parity_unet(dtype, dev):
 
 def test_parity_unet_channels_last_agrees_with_ncdhw_on_card(cuda, monkeypatch):
     """The bf16 U-Net at the parity cell's shape on the channels-last volume
-    against the same U-Net on the contiguous NCDHW volume (the layout before),
-    with cuDNN's deterministic algorithms. Every module's output stays
-    channels-last. Tolerance: the two runs are the same bf16 math (f32
-    accumulation, one rounding a layer) summed in another order, which flips
+    (``prob`` as K7) against the same U-Net on the contiguous NCDHW volume (the
+    layout before, ``prob`` as cuDNN's), with cuDNN's deterministic
+    algorithms. Every module's output stays channels-last. Tolerance: the two
+    runs are the same bf16 math (f32 accumulation, one rounding a layer)
+    summed in another order, which flips
     a bf16 rounding only where an f32 sum lies on a rounding boundary; so they
     must agree far better than bf16 agrees with f32: the gap between the
     layouts is at most a quarter of the bf16 U-Net's mean gap from its f32
@@ -1969,13 +1970,11 @@ def test_parity_unet_launches_no_layout_conversion_or_direct_dgrad(cuda):
     """Each module of the bf16 U-Net at the parity cell's shape, profiled on
     its own input as the channels-last forward hands it (the volume from
     ``unet_input``): no cuDNN layout conversion (``nchwToNhwc``,
-    ``nhwcToNchw``) of an activation and no direct-dgrad fallback
-    (``dgrad2d_grouped_direct``) for the transposed convolutions. The one
-    exception is ``prob``, the one-output-channel convolution, whose cuDNN
-    kernel (not a tensor-core one) takes its 216-value filter in NCDHW: that
-    conversion is allowed, and told from one of an activation by its time,
-    under 10 us, where converting even ``prob``'s 38 MB output would take
-    over 20 us at the card's memory bandwidth."""
+    ``nhwcToNchw``) and no direct-dgrad fallback (``dgrad2d_grouped_direct``)
+    for the transposed convolutions. ``prob``, the one-output-channel
+    convolution, runs as K7 alone: none of cuDNN's kernels, so neither its
+    FFMA ``implicit_convolveNd_sgemm`` nor the conversion of the filter it
+    took in NCDHW."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2002,9 +2001,9 @@ def test_parity_unet_launches_no_layout_conversion_or_direct_dgrad(cuda):
             top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
             print(name, [(k[:90], round(ms, 3)) for k, ms in top])
             bad = {k: ms for k, ms in kernels.items() if any(c in k for c in conversions)}
-            if name == "prob":
-                bad = {k: ms for k, ms in bad.items() if "nhwcToNchw" not in k or ms >= 0.01}
             assert kernels and not bad, (name, bad, top)
+            if name == "prob":
+                assert list(kernels) == [k for k in kernels if "prob_conv3d_kernel" in k], top
 
 
 @pytest.mark.parametrize("over,dtype,volumes", [
@@ -2016,7 +2015,8 @@ def test_each_traced_estimate_counts_two_ndhwc_volumes_on_card(cuda, over, dtype
     """``ndhwc_volumes`` in ``stereo/cost_reg`` reads 2 for each traced bf16
     estimate on the card, through K2 (the parity configuration) and through
     the eager warp (the paper configuration); in f32 the U-Net runs NCDHW on
-    the card (``stereo.unet_input``) and it reads 0."""
+    the card (``stereo.unet_input``) and it reads 0. ``k7_launches`` reads the
+    same: each bf16 U-Net's ``prob`` runs as K7, the f32 one's as cuDNN's."""
     from torch.profiler import ProfilerActivity, profile
 
     from rgbmanip_tpu_torch.utils.logger import SPANS
@@ -2036,3 +2036,99 @@ def test_each_traced_estimate_counts_two_ndhwc_volumes_on_card(cuda, over, dtype
         SPANS.reset()
     assert s["stereo/cost_reg"]["calls"] == 3
     assert s["stereo/cost_reg"].get("ndhwc_volumes", 0) == volumes
+    assert s["stereo/cost_reg"].get("k7_launches", 0) == volumes
+
+
+# ---------------------------------------------------- K7, the prob convolution --
+def k7_input(shape, kind, dev, seed):
+    """A (B, 8, D, H, W) bf16 volume in the channels-last-3d layout, and a
+    (1, 8, 3, 3, 3) f32 filter of the flax init's scale. ``kind``: "relu"
+    (the U-Net's own activations are sums of ReLUs: no sign), "randn" (either
+    sign, so more outputs cancel), or "faces": randn on each sample's six
+    faces and zero inside, so that every nonzero output reads the halo."""
+    B, C, D, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn(B, D, H, W, C, generator=g, device=dev)
+    if kind == "relu":
+        rows = rows.relu()
+    elif kind == "faces":
+        inner = torch.zeros(D, H, W, dtype=torch.bool, device=dev)
+        inner[1:-1, 1:-1, 1:-1] = True
+        rows[:, inner] = 0
+    w = torch.randn(1, C, 3, 3, 3, generator=g, device=dev) / 216 ** 0.5
+    return rows.to(torch.bfloat16).permute(0, 4, 1, 2, 3), w
+
+
+@pytest.mark.parametrize("shape,kind", [
+    ((16, 8, 24, 224, 224), "relu"), ((16, 8, 24, 112, 112), "relu"),
+    ((128, 8, 16, 24, 24), "relu"), ((3, 8, 5, 17, 29), "randn"), ((1, 8, 1, 1, 1), "randn"),
+    ((2, 8, 7, 33, 15), "randn"), ((2, 8, 6, 40, 36), "faces"), ((4, 8, 3, 2, 70), "faces")],
+    ids=["parity", "paper", "fast", "ragged", "one-voxel", "ragged-33-rows", "faces",
+         "faces-thin"])
+def test_k7_kernel_matches_the_f64_reference(cuda, shape, kind):
+    """K7 and cuDNN's bf16 convolution of the same channels-last volume and
+    bf16-rounded filter, each against the convolution accumulated in f64 and
+    rounded once to bf16 (``prob_conv.reference_gaps``): every K7 output
+    within the larger of 1 bf16 ulp of the reference and cuDNN's own largest
+    error, and at least 99% of them equal to it. Both sum the same exact
+    products in f32 in their own orders, so an output rounds apart only near a
+    bf16 rounding boundary or where its terms cancel. The cells' shapes,
+    ragged shapes that end inside the kernel's 32-row by 16-column tile in
+    both directions, one voxel, and volumes whose data sit on the six faces of
+    each sample of the batch. Inside a traced span the call counts one
+    ``k7_launches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbmanip_tpu_torch.ops import prob_conv
+    from rgbmanip_tpu_torch.utils.logger import SPANS, span
+
+    x, w = k7_input(shape, kind, cuda, seed=sum(shape))
+    SPANS.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]), span("k7"):
+            with torch.inference_mode():
+                out = prob_conv.prob_conv3d(x, w)
+        torch.cuda.synchronize()
+        s = SPANS.summary()
+    finally:
+        SPANS.reset()
+    assert s["k7"].get("k7_launches", 0) == 1
+    with torch.inference_mode():
+        assert out.shape == (shape[0], 1, *shape[2:]) and out.dtype == torch.bfloat16
+        assert out.is_contiguous() and torch.isfinite(out.float()).all()
+        gaps = prob_conv.reference_gaps(out, x, w)
+    print(shape, kind, gaps)
+    assert gaps["held"], gaps
+
+
+@pytest.mark.parametrize("dtype,grad,launches", [
+    (torch.bfloat16, False, 1), (torch.bfloat16, True, 0), (torch.float32, False, 0)],
+    ids=["bf16-no-grad", "bf16-grad", "f32"])
+def test_k7_launches_once_a_bf16_unet_forward_without_gradient(cuda, dtype, grad, launches):
+    """One U-Net forward on the card inside a traced span: ``k7_launches``
+    reads 1 for a bf16 forward under ``no_grad`` on the channels-last volume
+    (``unet_input``), 0 for one that records a gradient (the trainer's bf16
+    step), and 0 in f32 (NCDHW)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    from rgbmanip_tpu_torch.utils.logger import SPANS, span
+
+    net = stereo.CostRegNet(32, base=8, dtype=dtype)
+    net = stereo.flax_init_(net, torch.Generator().manual_seed(0)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    vol = torch.randn(2, 8, 32, 32, 32, generator=g, device=cuda).to(dtype)
+    vol = stereo.unet_input(vol.permute(0, 4, 1, 2, 3))
+    SPANS.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            with torch.set_grad_enabled(grad), span("unet"):
+                out = net(vol)
+            if grad:
+                out.float().sum().backward()
+            torch.cuda.synchronize()
+        s = SPANS.summary()
+    finally:
+        SPANS.reset()
+    assert s["unet"]["calls"] == 1
+    assert s["unet"].get("k7_launches", 0) == launches
