@@ -1,23 +1,28 @@
 """Floating-point operations of the work the cells run, counted from shapes:
-``torch.utils.flop_counter`` over the reference on the meta device, so that
-the count is the same whatever implements the work. Convolutions,
-transposed convolutions and matrix products are counted (two operations a
-multiply-add); elementwise work, gathers and the solve are not."""
+``torch.utils.flop_counter`` over the configuration's reference network
+(``harness.reference``) on the meta device, so that the count is the same
+whatever implements the work. Convolutions, transposed convolutions and
+matrix products are counted (two operations a multiply-add); elementwise
+work, gathers and the solve are not."""
 
 from __future__ import annotations
 
 import functools
+import json
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..reference.net import StereoPoseNet
+from .. import harness as H
 
 
 @functools.cache
-def _estimate_flops(backend, backbone_stride, volume_scale, warp_mode, S, N, D, B):
+def _estimate_flops(cfg_json, B):
+    cfg = json.loads(cfg_json)
+    ref = H.reference(cfg)
+    S, N, D = int(cfg["img_size"]), int(cfg["n_pts"]), int(cfg["n_depth"])
     with torch.device("meta"):
-        net = StereoPoseNet(backend, backbone_stride, volume_scale, warp_mode).eval()
+        net = ref.network(cfg).eval()
         img = torch.empty(B, S, S, 3)
         choose = torch.zeros(B, N, dtype=torch.long)
         proj = torch.eye(4).repeat(B, 1, 1)
@@ -29,10 +34,7 @@ def _estimate_flops(backend, backbone_stride, volume_scale, warp_mode, S, N, D, 
 
 def estimate_flops(est_cfg: dict, B: int) -> int:
     """The network's operations for one batch of ``B`` view pairs."""
-    return _estimate_flops(est_cfg["backend"], int(est_cfg["backbone_stride"]),
-                           int(est_cfg["volume_scale"]), est_cfg["warp_mode"],
-                           int(est_cfg["img_size"]), int(est_cfg["n_pts"]),
-                           int(est_cfg["n_depth"]), int(B))
+    return _estimate_flops(json.dumps(est_cfg, sort_keys=True), int(B))
 
 
 def mlp_flops(widths, B: int) -> int:

@@ -11,9 +11,10 @@ as the masks' bounding rectangles, camera extrinsics and intrinsics. The rows ar
 draws come from a generator the benchmark seeds before each call.
 
 Correctness: once the window has closed and the program is freed, the
-reference (``reference/estimate.py``) recomputes ``check_calls`` calls drawn
-from the seed on the same inputs and draws, in float32, and ``compare``
-holds the program's outputs to it.
+configuration's reference (``harness.reference``: ``reference/v5.py`` unless
+its ``"reference"`` key names another generation's) recomputes
+``check_calls`` calls drawn from the seed on the same inputs and draws, in
+float32, and ``compare`` holds the program's outputs to it.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ import torch
 
 from portbench import harness as H
 from portbench.counts import flops, k1
-from portbench.reference import estimate as RE
 from portbench.reference import net as RN
 from portbench.reference import weights as RW
 
@@ -39,7 +39,12 @@ KNOBS = ("name", "task_name", "img_size", "n_pts", "use_depth", "direct_regressi
 
 
 def knobs(cfg):
-    return {k: cfg[k] for k in KNOBS}
+    """The estimator's knobs, with ``arch`` where the configuration names the
+    network (without it the program builds the v3-v5 network)."""
+    e = {k: cfg[k] for k in KNOBS}
+    if "arch" in cfg:
+        e["arch"] = cfg["arch"]
+    return e
 
 
 def _masks(win, device):
@@ -92,10 +97,9 @@ def inputs(wl, seed, device):
 
 
 def reference_net(cfg, seed, device):
-    """The reference network with the cell's weights: the checkpoint read by
-    the reference's own reader, or drawn from the seed."""
-    net = RN.StereoPoseNet(cfg["backend"], cfg["backbone_stride"], cfg["volume_scale"],
-                           cfg["warp_mode"]).eval()
+    """The configuration's reference network with the cell's weights: the
+    checkpoint read by the reference's own reader, or drawn from the seed."""
+    net = H.reference(cfg).network(cfg).eval()
     if "checkpoint" in cfg["weights"]:
         state = RW.net_state(RW.read_checkpoint(f"{H.ROOT}/{cfg['weights']['checkpoint']}"), net)
     else:
@@ -138,8 +142,8 @@ def call(est, x):
 
 def reference_outputs(net, cfg, x, u1, u2, quant=None):
     with torch.no_grad(), RN.quantize(net, quant):
-        r = RE.estimate(net, cfg, x["K"], x["rgb1"], x["mask1"], x["ext1"], x["rgb2"],
-                        x["mask2"], x["ext2"], u1, u2)
+        r = H.reference(cfg).estimate(net, cfg, x["K"], x["rgb1"], x["mask1"], x["ext1"],
+                                      x["rgb2"], x["mask2"], x["ext2"], u1, u2)
     return {k: v.cpu().numpy() for k, v in r.items()}
 
 

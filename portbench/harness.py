@@ -6,10 +6,13 @@ A cell is found by its name in ``BENCHMARK.json``; its traffic file is
 ``workloads/<cell>.json`` and names the driver (``drivers/<driver>.py``), its
 configuration file is ``configs/<config>.json``, and each per-layer metric is
 ``metrics/<metric>.py`` with a ``read(run)`` that returns a number or None.
+A configuration's plain reference is ``reference/<name>.py``, named by its
+``"reference"`` key (``reference``).
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -39,6 +42,31 @@ def load_module(kind: str, name: str):
     spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def reference(cfg: dict):
+    """The plain reference of the configuration's estimator generation: the
+    module ``reference/<name>.py`` that its ``"reference"`` key names, "v5"
+    where the key is absent. Such a module exposes ``network(cfg)``, the
+    float32 network whose parameter names are the program's, and
+    ``estimate(net, cfg, K, rgb1, mask1, ext1, rgb2, mask2, ext2, u1, u2)``,
+    the whole estimate as a dict of ``bbox``, ``valid``, ``R_cam``, ``t_cam``
+    and ``scale``."""
+    return _reference(cfg.get("reference", "v5"))
+
+
+@functools.cache
+def _reference(name):
+    path = os.path.join(HERE, "reference", f"{name}.py")
+    if not (isinstance(name, str) and re.fullmatch(r"[A-Za-z0-9_]+", name)
+            and os.path.isfile(path)):
+        raise ValueError(f"the configuration's reference {name!r} names no module "
+                         f"portbench/reference/<name>.py")
+    mod = load_module("reference", name)
+    if not all(callable(getattr(mod, f, None)) for f in ("network", "estimate")):
+        raise ValueError(f"the configuration's reference {name!r}: reference/{name}.py "
+                         f"has no network(cfg) and estimate(...)")
     return mod
 
 

@@ -118,8 +118,10 @@ def seeded_state(net, seed, device):
     of a device generator: every convolution and dense weight normal with
     variance 1 / fan-in (fan-in: input channels times kernel taps), biases
     zero, PReLU slopes 0.25, BatchNorm the identity (scale 1, bias 0,
-    running mean 0, running variance 1)."""
+    running mean 0, running variance 1; a BatchNorm is a module with a
+    running mean)."""
     state = net.state_dict()
+    batch_norms = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
     weights = [(k, v) for k, v in state.items()
                if k.endswith(".weight") and v.dim() >= 2]
     total = sum(v.numel() for _, v in weights)
@@ -136,7 +138,8 @@ def seeded_state(net, seed, device):
     for k, v in state.items():
         if k in out or k.endswith("num_batches_tracked"):
             continue
-        if k.endswith("running_var") or (k.endswith(".weight") and ".bn." in k):
+        if k.endswith("running_var") or (k.endswith(".weight")
+                                         and k.rsplit(".", 1)[0] in batch_norms):
             out[k] = torch.ones(v.shape, device=device)
         elif k.endswith(".weight"):            # PReLU slope
             out[k] = torch.full(v.shape, 0.25, device=device)
