@@ -14,10 +14,12 @@ the arguments of every call to a kernel's wrapper recorded:
 
   - the flagship evaluation's estimate: ``adapose_cabinet_fast`` at B=8 in
     f32 (its configurations name no dtype): K1 twice;
-  - the three cells at their own batch and dtype (``fast.estimate_b128``,
-    ``paper.estimate_b16``, ``parity.estimate_b16``, bf16): K1's bf16 entry
-    point twice an estimate, K2 twice in parity and never in the others, K7
-    (the U-Net's ``prob`` convolution) twice in each;
+  - the three bf16 cells at their own batch and dtype (``fast.estimate_b128``,
+    ``paper.estimate_b16``, ``parity.estimate_b16``): K1's bf16 entry point
+    twice an estimate, K2 twice in parity and never in the others, K7 (the
+    U-Net's ``prob`` convolution) twice in each;
+  - the f32 cell ``v1.estimate_b16_f32``, the original network at B=16: K1
+    twice, K2 twice at (16, 32, 24, 224, 224), K7 never (v1 has no U-Net);
   - the parity network in f32 at B=8, the volume of the estimator's
     inference harness, (8, 32, 24, 224, 224): K1 twice, K2 twice, K7 never;
   - the estimator trainer's crop (``SimViewSampler._prepare``:
@@ -36,13 +38,13 @@ tolerance (``prob_conv.reference_gaps``); K1 also on a reversed window (an
 empty mask) and a sweep of centred, edge and corner windows, K5 also in f32
 and at (1, 640, 8, 2), where its index arithmetic wraps around int32. Last,
 each kernel's device time a launch (torch.profiler) on the first run that
-launched it (K7 on the parity and the paper cells' calls), beside its
-bound (its least bytes and operations, ``portbench/counts``, over the card's
-peaks, ``portbench/counts/peaks.py``), its plain version's and one library
-call's: ``F.grid_sample`` of the same coordinates for K1 (border padding) and
-K2 (zero padding, one tap set a depth, no fusing add), ``index_select`` for
-K5, and for K7 ``F.conv3d`` in bf16 on the channels-last volume (cuDNN),
-which is also its plain version.
+launched it (so K2 in f32 on the v1 cell's calls; K7 on the parity and the
+paper cells' calls), beside its bound (its least bytes and operations,
+``portbench/counts``, over the card's peaks, ``portbench/counts/peaks.py``),
+its plain version's and one library call's: ``F.grid_sample`` of the same
+coordinates for K1 (border padding) and K2 (zero padding, one tap set a
+depth, no fusing add), ``index_select`` for K5, and for K7 ``F.conv3d`` in
+bf16 on the channels-last volume (cuDNN), which is also its plain version.
 
 Any failure exits 1. The last three lines are the card's name and power
 limit, the kernels' JSON line and ``{"ok": true, "device": {...}}``. Without
@@ -69,6 +71,7 @@ RUNS = (("flagship B=8 f32", "adapose_cabinet_fast", "fast.estimate_b128",
         ("fast.estimate_b128", "adapose_cabinet_fast", "fast.estimate_b128", {}),
         ("paper.estimate_b16", "adapose_cabinet", "paper.estimate_b16", {}),
         ("parity.estimate_b16", "adapose_cabinet_parity", "parity.estimate_b16", {}),
+        ("v1.estimate_b16_f32", "adapose_cabinet_v1", "v1.estimate_b16_f32", {}),
         ("parity B=8 f32", "adapose_cabinet_parity", "parity.estimate_b16",
          {"batch": 8, "dtype": "float32"}))
 TRAIN_CROP = (192, 1024)       # the estimator trainer's img_size and n_pts

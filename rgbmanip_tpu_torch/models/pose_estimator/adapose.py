@@ -190,9 +190,11 @@ class AdaPoseEstimator(BasePoseEstimator):
             P1, P2 = eye4.clone(), eye4.clone()
             P1[:, :3] = K @ ext1[:, :3]
             P2[:, :3] = K @ ext2[:, :3]
-            ts, ok = G.depth_from_nocs_matches(pts2d1, nocs1, P1, ext1, pts2d2,
-                                               pred["view2_nocs"].float(), P2, ext2, K)
-            R, tt = G.pnp_dlt(nocs1 * ts[:, None, None], pts2d1, K)
+            with span("solve/match", triangulations=B * nocs1.shape[1]):
+                ts, ok = G.depth_from_nocs_matches(pts2d1, nocs1, P1, ext1, pts2d2,
+                                                   pred["view2_nocs"].float(), P2, ext2, K)
+            with span("solve/pnp"):
+                R, tt = G.pnp_dlt(nocs1 * ts[:, None, None], pts2d1, K)
         size = 2.0 * nocs1.abs().max(dim=1).values * ts[:, None]
         sRT = eye4
         sRT[:, :3, :3] = R

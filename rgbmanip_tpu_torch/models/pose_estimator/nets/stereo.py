@@ -8,7 +8,8 @@ depth-solve generation), ``stereo_fusion`` (False: the no-cross-view
 ablation, ``adapose_baseline``), ``volume_channels`` (a 1x1 reduction
 before the warp), ``realworld_pts`` (the pose branch over (px, py, depth))
 and ``fuse_views`` (both views' towers in one batch, eval only).
-``StereoPoseNetV1`` is the original volume_conv + fuse_conv network.
+``StereoPoseNetV1`` is the original volume_conv + fuse_conv network, whose
+fused volumes come from the same bilinear warp (K2 where it applies).
 
 Per view: PSPNet features, a plane-sweep cost volume built by warping the
 other view's features over D depth hypotheses, a 3-D U-Net (CostRegNet) over
@@ -182,6 +183,13 @@ def fused_volume_plain(src_feat, ref_feat, src_proj, ref_proj, depth_values):
     and the fusing add (``fuse``), channels-last: K2's plain version."""
     w = homo_warp_batched(src_feat, src_proj, ref_proj, depth_values, "bilinear")
     return fuse(w, ref_feat)
+
+
+def k2_can_run(feat) -> bool:
+    """Whether a network's forward may build its fused volumes with K2: no
+    gradient recorded (K2 has no backward) and features on the card. Each
+    network's ``k2_applies`` adds its own terms."""
+    return not torch.is_grad_enabled() and feat.is_cuda
 
 
 def fused_volume(src_feat, ref_feat, src_proj, ref_proj, depth_values):
@@ -537,8 +545,7 @@ class StereoPoseNetWithDepth(_PoseNet):
         warp with both views fused, no gradient recorded, and features on the
         card. Elsewhere (the CPU, training, the nearest warp) the eager warp,
         K2's plain twin, builds them."""
-        return (self.warp_mode == "bilinear" and self.stereo_fusion
-                and not torch.is_grad_enabled() and feat.is_cuda)
+        return self.warp_mode == "bilinear" and self.stereo_fusion and k2_can_run(feat)
 
     def forward(self, v1_img, v1_choose, v2_img, v2_choose, v1_proj, v2_proj,
                 depth_values, v1_pts2d=None, v2_pts2d=None):
@@ -660,7 +667,9 @@ class StereoPoseNetWithDepth(_PoseNet):
 class VolumeConv(nn.Module):
     """V1's volume_conv: 1x1x1 convolutions 32 -> 16 -> 8 -> 1 over the
     fused volume, each with flax's default BatchNorm (momentum 0.99) and a
-    ReLU. (B, D, H, W, C) -> (B, H, W, D)."""
+    ReLU. (B, C, D, H, W) -> (B, H, W, D). It takes the fused volume as both
+    of its routes return it (``fused_volume``, ``fused_volume_plain``): a
+    view over channels-last-3d memory (B, D, H, W, C), read as it is."""
 
     def __init__(self, in_ch: int = 32, dtype=torch.float32):
         super().__init__()
@@ -669,7 +678,6 @@ class VolumeConv(nn.Module):
             setattr(self, f"bn_{i}", FlaxBatchNorm3d(b, momentum=0.99, dtype=dtype))
 
     def forward(self, x):
-        x = x.permute(0, 4, 1, 2, 3)
         for i in range(3):
             x = F.relu(getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(x)))
         return x[:, 0].permute(0, 2, 3, 1)
@@ -678,8 +686,9 @@ class VolumeConv(nn.Module):
 class StereoPoseNetV1(_PoseNet):
     """The v1 network (the JAX module's ``StereoPoseNetV1``): PSPNet at
     backbone stride 8 (full-resolution features), the bilinear plane-sweep
-    warp at full resolution, ``volume_conv`` to one channel per depth, a
-    ``fuse_conv`` MLP over the D depths added back to the features, the
+    warp at full resolution and its fusing add (K2 where ``k2_applies``,
+    else ``fused_volume_plain``), ``volume_conv`` to one channel per depth,
+    a ``fuse_conv`` MLP over the D depths added back to the features, the
     NOCS head on the fused features, and the pose heads over the NOCS
     head's input and the NOCS. ``n_depth`` is the D that ``fuse_conv``
     takes."""
@@ -696,22 +705,33 @@ class StereoPoseNetV1(_PoseNet):
         self._build_nocs(32, dtype)
         self._build_heads(128, dtype)
 
+    def k2_applies(self, feat) -> bool:
+        """Whether the forward builds its fused volumes with K2: ``k2_can_run``
+        alone, as the warp is always bilinear and always fused. Elsewhere (the
+        CPU, training) the eager warp, K2's plain twin, builds them."""
+        return k2_can_run(feat)
+
     def forward(self, v1_img, v1_choose, v2_img, v2_choose, v1_proj, v2_proj,
                 depth_values):
         B, S = v1_img.shape[0], v1_img.shape[1]
-        f1 = self.img_extractor(v1_img)        # (B, S, S, 32)
-        f2 = self.img_extractor(v2_img)
-        w2 = homo_warp_batched(f2, v2_proj, v1_proj, depth_values)
-        w1 = homo_warp_batched(f1, v1_proj, v2_proj, depth_values)
-        g1 = self.volume_conv(f1[:, None] + w2)
-        g2 = self.volume_conv(f2[:, None] + w1)
-        f1 = F.relu(f1 + self.fuse_conv(g1))
-        f2 = F.relu(f2 + self.fuse_conv(g2))
-        n1 = self.instance_color(flat_gather(f1.reshape(B, S * S, -1), v1_choose))
-        n2 = self.instance_color(flat_gather(f2.reshape(B, S * S, -1), v2_choose))
-        nocs1, nocs2 = self.nocs_head(n1), self.nocs_head(n2)
-        R1, t1, s1 = self.heads(torch.cat([n1, self.nocs_pts_mlp(nocs1)], dim=-1))
-        R2, t2, s2 = self.heads(torch.cat([n2, self.nocs_pts_mlp(nocs2)], dim=-1))
+        with span("stereo/backbone"):
+            f1 = self.img_extractor(v1_img)        # (B, S, S, 32)
+            f2 = self.img_extractor(v2_img)
+        with span("stereo/warp"):
+            fused = fused_volume if self.k2_applies(f1) else fused_volume_plain
+            vol1 = fused(f2, f1, v2_proj, v1_proj, depth_values)     # (B, C, D, S, S)
+            vol2 = fused(f1, f2, v1_proj, v2_proj, depth_values)
+        with span("stereo/volume_conv", volume_bytes=2 * vol1.numel() * vol1.element_size()):
+            g1 = self.volume_conv(vol1)
+            g2 = self.volume_conv(vol2)
+            f1 = F.relu(f1 + self.fuse_conv(g1))
+            f2 = F.relu(f2 + self.fuse_conv(g2))
+        with span("stereo/heads"):
+            n1 = self.instance_color(flat_gather(f1.reshape(B, S * S, -1), v1_choose))
+            n2 = self.instance_color(flat_gather(f2.reshape(B, S * S, -1), v2_choose))
+            nocs1, nocs2 = self.nocs_head(n1), self.nocs_head(n2)
+            R1, t1, s1 = self.heads(torch.cat([n1, self.nocs_pts_mlp(nocs1)], dim=-1))
+            R2, t2, s2 = self.heads(torch.cat([n2, self.nocs_pts_mlp(nocs2)], dim=-1))
         return {"view1_nocs": nocs1, "view2_nocs": nocs2,
                 "view1_r": R1, "view1_t": t1, "view1_s": s1,
                 "view2_r": R2, "view2_t": t2, "view2_s": s2}

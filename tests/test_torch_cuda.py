@@ -1886,6 +1886,91 @@ def test_k2_parity_estimate_equals_the_eager_warp_on_card(cuda, monkeypatch):
         assert all(np.array_equal(out[k], off[k], equal_nan=True) for k in off)
 
 
+@pytest.mark.parametrize("B,S,backend,dtype", [
+    (2, 64, "resnet18", torch.float32), (2, 64, "resnet18", torch.bfloat16),
+    (16, 224, "resnet34", torch.float32), (16, 224, "resnet34", torch.bfloat16)],
+    ids=["small-f32", "small-bf16", "cell-f32", "cell-bf16"])
+def test_k2_v1_forward_equals_its_eager_route_on_card(cuda, monkeypatch, B, S, backend, dtype):
+    """``StereoPoseNetV1`` on the card builds both fused volumes through K2
+    (2 launches a forward) and gives, bit for bit, what the same network
+    gives through its eager route (``fused_volume_plain``, ``k2_applies``
+    False), with cuDNN's deterministic algorithms: at a small size and at the
+    v1 cell's (B, S, S) = (16, 224, 224) with resnet34, 24 depths and 1,024
+    points."""
+    from test_torch_plane_sweep import bits, geometry
+
+    from rgbmanip_tpu_torch.models.pose_estimator.nets import stereo
+    from rgbmanip_tpu_torch.ops import plane_sweep
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    D, N = (24, 1024) if S == 224 else (8, 128)
+    net = stereo.StereoPoseNetV1(backend, n_depth=D, dtype=dtype)
+    net = stereo.flax_init_(net, torch.Generator().manual_seed(0)).to(cuda).eval()
+    p1, p2, depth = geometry(B, S, S, D, seed=5, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    img = [torch.randn(B, S, S, 3, generator=g, device=cuda).to(dtype) for _ in range(2)]
+    choose = [torch.randint(0, S * S, (B, N), generator=g, device=cuda) for _ in range(2)]
+    x = (img[0], choose[0], img[1], choose[1], p1, p2, depth.abs())
+    with torch.inference_mode():
+        before = plane_sweep.warp_fuse.launches
+        on = net(*x)
+        assert plane_sweep.warp_fuse.launches - before == 2
+        monkeypatch.setattr(stereo.StereoPoseNetV1, "k2_applies", lambda self, feat: False)
+        off = net(*x)
+        assert plane_sweep.warp_fuse.launches - before == 2
+    assert set(on) == set(off)
+    for k in off:
+        assert on[k].dtype == off[k].dtype and torch.equal(bits(on[k]), bits(off[k])), k
+
+
+def test_k2_v1_estimate_launches_k2_twice_on_card_and_never_on_the_cpu(cuda):
+    """``make_estimator("v1")`` at the flagship's knobs (192 px, 16 depths)
+    on seeded weights, three calls under the profiler: on the card each call
+    launches K2 twice (``k2_launches`` 2 in ``stereo/warp``), opens every
+    stage once with a device time, ``volume_bytes`` and ``triangulations``
+    as their shapes give them, and the stages cover at least 95% of the
+    root's device time; on the CPU K2 never runs and ``stereo/warp`` counts
+    no launch (``test_generation_on_card_matches_cpu`` holds the two sides'
+    boxes together)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import make_estimator
+    from rgbmanip_tpu_torch.ops import plane_sweep
+    from rgbmanip_tpu_torch.utils.logger import SPANS
+
+    cfg = load_group("pose_estimator", "adapose_cabinet_fast", {"load": False})
+    S, N, D, B = int(cfg["img_size"]), int(cfg["n_pts"]), int(cfg["n_depth"]), 4
+    args = estimate_args(B, seed=5)
+    stages = ("adapose/preprocess", "stereo/backbone", "stereo/warp", "stereo/volume_conv",
+              "stereo/heads", "adapose/solve", "adapose/readback")
+    for d in (cuda, torch.device("cpu")):
+        est = make_estimator("v1", cfg, device=d)
+        x = [torch.from_numpy(a).to(d) for a in args]
+        before = plane_sweep.warp_fuse.launches
+        SPANS.reset()
+        try:
+            with profile(activities=[ProfilerActivity.CPU]
+                         + ([ProfilerActivity.CUDA] if d.type == "cuda" else [])):
+                for _ in range(3):
+                    est.estimate_full(*x)
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+            s = SPANS.summary()
+        finally:
+            SPANS.reset()
+        launched = plane_sweep.warp_fuse.launches - before
+        assert all(s[k]["calls"] == 3 for k in (*stages, "solve/match", "solve/pnp")), s
+        assert s["stereo/volume_conv"]["volume_bytes"] == 2 * B * 32 * D * S * S * 4
+        assert s["solve/match"]["triangulations"] == B * N
+        if d.type == "cuda":
+            assert launched == 6 and s["stereo/warp"]["k2_launches"] == 2
+            assert all(s[k]["device_ms"] > 0 for k in stages)
+            cover = sum(s[k]["device_ms"] for k in stages) / s["adapose/estimate"]["device_ms"]
+            assert 0.95 <= cover <= 1.005, cover
+        else:
+            assert launched == 0 and "k2_launches" not in s["stereo/warp"]
+
+
 # ------------------------------------------------- the U-Net's channels-last volume --
 @pytest.mark.parametrize("shape,dtype", [((16, 24, 224, 224, 32), torch.bfloat16),
                                          ((4, 8, 56, 56, 32), torch.float32)],

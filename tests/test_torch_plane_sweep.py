@@ -4,9 +4,11 @@ fusing add (``nets/stereo.py``: ``homo_warp_batched`` over ``_project`` and
 ``_sample``) as the U-Net's (B, C, D, H, W), channels-last, in f32 and bf16, both
 directions, on a geometry with points on and off the image, behind the
 camera and on tap ties (the card's tests use it too); the pose features'
-gather from that layout against the permuted gather; and the forward taking
+gather from that layout against the permuted gather; the forward taking
 K2's route only where it applies (no gradient, bilinear warp, both views
-fused, the card), with the same outputs as the eager path. The kernel itself
+fused, the card), with the same outputs as the eager path; and the same for
+v1's network (``StereoPoseNetV1``), whose ``VolumeConv`` reads the fused
+volume in that layout as the permute it replaced did. The kernel itself
 runs on the card (``tests/test_torch_cuda.py -k k2``). The file imports
 neither JAX nor the JAX package."""
 
@@ -237,3 +239,96 @@ def test_warp_fuse_checks_its_arguments():
         plane_sweep.warp_fuse(f, f, rays, trans, depth.double())
     with pytest.raises(ValueError, match="both"):
         plane_sweep.warp_fuse(f.half(), f.half(), rays, trans, depth)
+
+
+# ------------------------------------------------------------ v1 --
+def tiny_v1(dtype):
+    net = stereo.StereoPoseNetV1("resnet18", n_depth=8, dtype=dtype)
+    return stereo.flax_init_(net, torch.Generator().manual_seed(1)).eval()
+
+
+@pytest.fixture
+def counted_v1(monkeypatch):
+    return v1_on_card(monkeypatch)
+
+
+def v1_on_card(monkeypatch):
+    """v1's K2 route as if on the card: ``StereoPoseNetV1.k2_applies`` asked
+    of features on the card (its rule on the gradient unchanged), and
+    ``fused_volume`` (off the card its plain twin) counted."""
+    calls = []
+    applies, fused_volume = stereo.StereoPoseNetV1.k2_applies, stereo.fused_volume
+    monkeypatch.setattr(stereo.StereoPoseNetV1, "k2_applies",
+                        lambda self, feat: applies(self, ON_CARD))
+    monkeypatch.setattr(stereo, "fused_volume",
+                        lambda *a: calls.append(1) or fused_volume(*a))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_volume_conv_on_the_fused_view_equals_the_old_permute_path(dtype):
+    """``VolumeConv`` on the fused volume as both routes return it (the
+    (B, C, D, H, W) view over channels-last-3d memory, read in place) against
+    the forward it replaced, which took the eager sum ``ref[:, None] + warped``
+    as (B, D, H, W, C) and permuted it back: the same bits, with BatchNorm
+    statistics away from the identity."""
+    B, S, D, C = 2, 24, 6, 32
+    p1, p2, depth = geometry(B, S, S, D, seed=3)
+    f1, f2 = features(B, S, S, C, dtype, seed=4)
+    f1 = f1.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)   # as the PSPNet hands it
+    vc = stereo.flax_init_(stereo.VolumeConv(C, dtype), torch.Generator().manual_seed(1)).eval()
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for i in range(3):
+            bn = getattr(vc, f"bn_{i}")
+            for t, lo, hi in ((bn.running_mean, -0.1, 0.1), (bn.running_var, 0.5, 1.5),
+                              (bn.weight, 0.5, 1.5), (bn.bias, -0.1, 0.1)):
+                t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+
+        def old(x):
+            x = x.permute(0, 4, 1, 2, 3)
+            for i in range(3):
+                x = torch.relu(getattr(vc, f"bn_{i}")(getattr(vc, f"conv_{i}")(x)))
+            return x[:, 0].permute(0, 2, 3, 1)
+        want = old(f1[:, None] + stereo.homo_warp_batched(f2, p2, p1, depth, "bilinear"))
+        vol = stereo.fused_volume_plain(f2, f1, p2, p1, depth)
+        seen = []
+        hook = vc.conv_0.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+        got = vc(vol)
+        hook.remove()
+    assert seen[0] is vol                   # no permute back, no copy in the module
+    assert got.shape == (B, S, S, D) and got.dtype == dtype
+    assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v1_forward_through_k2_equals_the_eager_forward(counted_v1, monkeypatch, dtype):
+    """``StereoPoseNetV1`` builds both fused volumes through ``fused_volume``
+    (K2's entry) where K2 applies, and through its plain twin where it does
+    not: the same outputs bit for bit."""
+    net = tiny_v1(dtype)
+    x = net_inputs(2, 32, 16, 8, seed=3)
+    with torch.no_grad():
+        got = net(*x)
+        assert len(counted_v1) == 2
+        monkeypatch.setattr(stereo.StereoPoseNetV1, "k2_applies", lambda self, feat: False)
+        want = net(*x)
+    assert len(counted_v1) == 2 and set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_v1_k2_applies_only_on_the_card_without_a_gradient(monkeypatch):
+    net = tiny_v1(torch.float32)
+    with torch.no_grad():
+        assert not net.k2_applies(torch.zeros(1, 8, 8, 32))
+        assert net.k2_applies(ON_CARD)
+    assert not net.k2_applies(ON_CARD)     # a gradient recorded
+    calls = v1_on_card(monkeypatch)
+    x = net_inputs(2, 32, 16, 8, seed=3)
+    out = net.train()(*x)                  # training: the eager warp
+    out["view1_t"].sum().backward()
+    assert not calls
+    with torch.inference_mode():           # the estimator's own mode
+        net.eval()(*x)
+    assert len(calls) == 2

@@ -1,8 +1,9 @@
 """The port's spans (``rgbmanip_tpu_torch.utils.logger.span``) on the CPU:
 off and free of profiler ranges without a profiler; under one, one record
-per stage of an estimate with its parent, call id and counters, one
-``user_annotation`` range each in the chrome trace, and outputs bitwise
-equal to the untraced estimate's. The card's side (device times, the sync
+per stage of an estimate with its parent, call id and counters (v1's
+stages too: ``stereo/volume_conv`` and the solve's ``solve/match`` and
+``solve/pnp``), one ``user_annotation`` range each in the chrome trace, and
+outputs bitwise equal to the untraced estimate's. The card's side (device times, the sync
 counter) is in ``test_torch_cuda.py``."""
 
 import json
@@ -177,3 +178,42 @@ def test_a_span_closes_when_its_body_raises():
             pass
     assert [(r.name, r.parent, r.call) for r in L.SPANS.records] == [
         ("inner", "outer", 1), ("outer", None, 1), ("after", None, 2)]
+
+
+# v1 (``make_estimator("v1")``: the original network, NOCS-match
+# triangulation and DLT PnP) at a small crop, point count and depth count
+V1 = dict(img_size=64, n_pts=128, backend="resnet18", n_depth=8, load=False)
+V1_STAGES = ("adapose/preprocess", "stereo/backbone", "stereo/warp", "stereo/volume_conv",
+             "stereo/heads", "adapose/solve", "adapose/readback")
+V1_SOLVE = ("solve/match", "solve/pnp")
+
+
+def test_profiled_v1_estimate_records_each_span_once(views):
+    """A v1 estimate opens each of its stages once a call, the solve's two
+    stages inside ``adapose/solve``, with ``volume_bytes`` the bytes of both
+    fused volumes (B, C, D, S, S) and ``triangulations`` B x N; on the CPU K2
+    never runs, so ``stereo/warp`` counts no ``k2_launches``."""
+    from rgbmanip_tpu_torch.models.pose_estimator.adapose import make_estimator
+
+    est = make_estimator("v1", V1, device="cpu", seed=0)
+    est.generator.manual_seed(5)
+    off = est.estimate_full(*views)
+    with profile(activities=[ProfilerActivity.CPU]):
+        est.generator.manual_seed(5)
+        on = est.estimate_full(*views)
+    recs = {r.name: r for r in L.SPANS.records}
+    assert len(L.SPANS.records) == 10 and set(recs) == {ROOT, *V1_STAGES, *V1_SOLVE}
+    assert {r.call for r in L.SPANS.records} == {1}
+    assert all(recs[s].parent == ROOT for s in V1_STAGES)
+    assert all(recs[s].parent == "adapose/solve" for s in V1_SOLVE)
+    stages = [recs[s] for s in V1_STAGES]
+    assert all(a.t1 <= b.t0 for a, b in zip(stages, stages[1:]))
+    match, pnp = recs["solve/match"], recs["solve/pnp"]
+    assert recs["adapose/solve"].t0 <= match.t0 <= match.t1 <= pnp.t0 <= pnp.t1
+    assert pnp.t1 <= recs["adapose/solve"].t1
+    S, N, D = V1["img_size"], V1["n_pts"], V1["n_depth"]
+    assert recs["stereo/volume_conv"].counts == {"host_syncs": 0,
+                                                 "volume_bytes": 2 * B * 32 * D * S * S * 4}
+    assert match.counts == {"host_syncs": 0, "triangulations": B * N}
+    assert recs["stereo/warp"].counts == {"host_syncs": 0}
+    assert all(np.array_equal(on[k], off[k], equal_nan=True) for k in off)
